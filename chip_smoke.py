@@ -1,0 +1,385 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (rtvm_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, each printed with its result and seconds on its own line:
+  1. setup: the card's name and power limit (nvidia-smi), torch and CUDA versions;
+  2. build: the CUDA kernels (csrc/*.cu -> one nvcc call -> ctypes);
+  3. kernel A (the warp) against its plain PyTorch version on the card;
+  4. kernel B (the SIFT patch copy) against its plain version, every octave;
+  5. the SIFT window step: 3 windows of 16 frames of a seeded synthetic world
+     through VideMosaic.process_window, checked against the known camera path
+     and against the same run with the plain versions swapped in;
+then one JSON line of per-kernel numbers, the elapsed time, and as the last
+line {"ok": true, "device": {...}}. Any failed check exits non-zero. Without
+a CUDA device it prints no result and exits non-zero.
+
+Imports torch, numpy and rtvm_tpu_torch only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+T_START = time.time()
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+FRAME_H, FRAME_W = 360, 640  # BASELINE config 2 frames
+WINDOW = 16
+N_WINDOWS = 3
+WARP_TOL = 1e-3
+MIN_ACCEPTED = 47
+TRAJ_TOL_PX = 2.0
+MIN_PSNR_DB = 60.0
+SEED = 0
+
+
+class CheckFailed(Exception):
+    pass
+
+
+def say(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise CheckFailed(msg)
+
+
+def phase(name: str, t0: float, result: str) -> None:
+    say(f"[{name}] {result} ({time.time() - t0:.2f} s)")
+
+
+# ----------------------------------------------------------------- inputs
+
+
+def _blur_axis(a: np.ndarray, sigma: float, axis: int) -> np.ndarray:
+    r = max(1, int(math.ceil(3 * sigma)))
+    x = np.arange(-r, r + 1, dtype=np.float64)
+    taps = np.exp(-(x**2) / (2 * sigma**2))
+    taps /= taps.sum()
+    pad = [(0, 0)] * a.ndim
+    pad[axis] = (r, r)
+    p = np.pad(a, pad, mode="edge")
+    n = a.shape[axis]
+    return sum(t * np.take(p, np.arange(i, i + n), axis=axis) for i, t in enumerate(taps))
+
+
+def make_world(rng: np.random.RandomState, h: int, w: int) -> np.ndarray:
+    """A textured BGR uint8 world: blurred noise at two scales plus random
+    filled rectangles (corners and blobs for SIFT at every octave)."""
+    img = rng.uniform(0, 255, (h, w, 3))
+    img = _blur_axis(_blur_axis(img, 1.0, 0), 1.0, 1)
+    coarse = rng.uniform(0, 255, (h // 16 + 2, w // 16 + 2, 3))
+    coarse = np.repeat(np.repeat(coarse, 16, 0), 16, 1)[:h, :w]
+    coarse = _blur_axis(_blur_axis(coarse, 6.0, 0), 6.0, 1)
+    img = 0.6 * img + 0.4 * coarse
+    for _ in range(h * w // 900):
+        y, x = rng.randint(0, h - 8), rng.randint(0, w - 8)
+        dy, dx = rng.randint(6, 40), rng.randint(6, 40)
+        img[y : y + dy, x : x + dx] = rng.uniform(0, 255, 3)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def camera_path(n: int) -> np.ndarray:
+    """Integer (x, y) crop origins of frames 0..n-1: a steady drift right and
+    up. Steady, because the stitcher's 5-frame homography smoothing lags any
+    change of speed, and the trajectory check is against the raw path."""
+    i = np.arange(n)
+    xs, ys = 2 * i, -4 * i
+    return np.stack([xs - xs.min(), ys - ys.min()], -1)
+
+
+def make_clip(rng, n: int, h: int, w: int):
+    path = camera_path(n)
+    world = make_world(rng, h + int(path[:, 1].max()) + 8, w + int(path[:, 0].max()) + 8)
+    frames = np.stack([world[y : y + h, x : x + w] for x, y in path])
+    return frames, path
+
+
+WARP_CASES = {
+    "translate": [[1, 0, 20.3], [0, 1, 33.7], [0, 0, 1]],
+    "scale_down": [[0.93, 0, 25], [0, 0.93, 30], [0, 0, 1]],
+    "rot2_persp": [
+        [0.98 * math.cos(0.03), -0.98 * math.sin(0.03), 30],
+        [0.98 * math.sin(0.03), 0.98 * math.cos(0.03), 40],
+        [1e-5, -8e-6, 1],
+    ],
+    "rot30": [
+        [math.cos(math.radians(30)), -math.sin(math.radians(30)), 50],
+        [math.sin(math.radians(30)), math.cos(math.radians(30)), 10],
+        [0, 0, 1],
+    ],
+}
+
+
+# ----------------------------------------------------------------- timing
+
+
+def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, nops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ----------------------------------------------------------------- phases
+
+
+def phase_warp(torch, dev, frames_u8: np.ndarray, hc: int, wc: int) -> dict:
+    """Kernel A against warp_plain on the four H cases, then timed at the
+    main path's shape (one launch for a 16-frame window)."""
+    from rtvm_tpu_torch import kernels
+    from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch, warp_plain
+
+    t0 = time.time()
+    names = list(WARP_CASES)
+    H = torch.tensor([WARP_CASES[n] for n in names], dtype=torch.float32, device=dev)
+    G = inverse_maps(H)
+    fr = torch.as_tensor(frames_u8[: len(names)], device=dev).to(torch.float32)
+    fr = fr.permute(0, 3, 1, 2).contiguous()
+    out_k = warp_batch(fr, G, hc, wc)
+    out_p = warp_plain(fr, G, hc, wc)
+    torch.cuda.synchronize()
+    errs = {n: float((out_k[i] - out_p[i]).abs().max()) for i, n in enumerate(names)}
+    for i, n in enumerate(names):
+        check(bool(torch.isfinite(out_k[i]).all()), f"warp {n}: non-finite output")
+        check(float(out_k[i].abs().sum()) > 0, f"warp {n}: empty output")
+    err = max(errs.values())
+    check(err <= WARP_TOL, f"warp kernel vs plain max |d| {err} > {WARP_TOL} ({errs})")
+
+    # timing at the main path's shape: B = 16 frames, one launch
+    b = WINDOW
+    idx = [i % len(names) for i in range(b)]
+    frb = torch.as_tensor(frames_u8[:b], device=dev).to(torch.float32).permute(0, 3, 1, 2).contiguous()
+    Gb = G[idx].contiguous()
+    out = torch.empty((b, 3, hc, wc), dtype=torch.float32, device=dev)
+    lib = kernels.library()
+    g_host = np.ascontiguousarray(Gb.reshape(b, 9).cpu().numpy())
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+    def launch():
+        code = lib.rtvm_warp_bilinear(
+            ctypes.c_void_p(frb.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            g_host.ctypes.data_as(ctypes.c_void_p), b, 3, FRAME_H, FRAME_W, hc, wc, stream,
+        )
+        kernels.check(code, "rtvm_warp_bilinear")
+
+    ms = cuda_ms(torch, launch)
+    plain_ms = cuda_ms(torch, lambda: warp_plain(frb, Gb, hc, wc), reps=5)
+    # library yardstick: grid_sample on the same sample points (timed only)
+    ys = torch.arange(hc, dtype=torch.float32, device=dev)[None, :, None]
+    xs = torch.arange(wc, dtype=torch.float32, device=dev)[None, None, :]
+    g = Gb.reshape(b, 9, 1, 1)
+    den = g[:, 6] * xs + g[:, 7] * ys + g[:, 8]
+    sx = (g[:, 0] * xs + g[:, 1] * ys + g[:, 2]) / den
+    sy = (g[:, 3] * xs + g[:, 4] * ys + g[:, 5]) / den
+    grid = torch.stack([sx * (2.0 / (FRAME_W - 1)) - 1.0, sy * (2.0 / (FRAME_H - 1)) - 1.0], -1)
+    library_ms = cuda_ms(torch, lambda: torch.nn.functional.grid_sample(
+        frb, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
+    nbytes = b * (3 * FRAME_H * FRAME_W * 4 + 3 * hc * wc * 4)
+    nops = b * hc * wc * (12 + 3 * 12)  # position math + 3 channels of taps and blends
+    bound_ms, bound_by = bound(nbytes, nops)
+    phase("warp", t0, f"max|d| {err:.3g} per case {errs}; per 16-frame launch: kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    return {"name": "warp_bilinear", "route": "cuda", "source": "rtvm_tpu_torch/csrc/warp.cu",
+            "replaces": "rtvm_tpu/ops/pallas_warp.py:127", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def phase_patches(torch, dev) -> dict:
+    """Kernel B against its plain version at every octave shape of the main
+    path (B = 16 frames, one launch per octave); the times are one window's
+    four launches together."""
+    from rtvm_tpu_torch.ops.features.sift import PATCH, _octave_quotas
+    from rtvm_tpu_torch.ops.pallas_patches import extract_patches, extract_patches_plain
+
+    t0 = time.time()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    b, s = WINDOW, 3
+    quotas = _octave_quotas(700, 4, 4.0)
+    ms = plain_ms = library_ms = bound_ms = 0.0
+    err = 0.0
+    shapes = []
+    for o, q in enumerate(quotas):
+        h, w = FRAME_H >> o, FRAME_W >> o
+        stack = torch.rand((b, s * h, w), generator=gen, device=dev)
+        ys = torch.randint(0, s * h - PATCH + 1, (b, q), generator=gen, device=dev, dtype=torch.int32)
+        xs = torch.randint(0, w - PATCH + 1, (b, q), generator=gen, device=dev, dtype=torch.int32)
+        out_k = extract_patches(stack, ys, xs)
+        out_p = extract_patches_plain(stack, ys, xs)
+        torch.cuda.synchronize()
+        check(torch.equal(out_k, out_p), f"patches octave {o}: kernel differs from plain")
+        err = max(err, float((out_k - out_p).abs().max()))
+        ms += cuda_ms(torch, lambda: extract_patches(stack, ys, xs))
+        plain_ms += cuda_ms(torch, lambda: extract_patches_plain(stack, ys, xs))
+        d = torch.arange(PATCH, device=dev)
+        rows = (ys.long()[:, :, None, None] + d[:, None])
+        cols = (xs.long()[:, :, None, None] + d[None, :])
+        bi = torch.arange(b, device=dev)[:, None, None, None]
+        library_ms += cuda_ms(torch, lambda: stack[bi, rows, cols])
+        patch_bytes = q * PATCH * PATCH * 4
+        bound_ms += bound(b * (min(s * h * w * 4, patch_bytes) + patch_bytes), 0)[0]
+        shapes.append(f"[{s * h},{w}]x{q}")
+    phase("patches", t0, f"byte-identical at {shapes}; per window (4 launches): kernel {ms:.4f} ms, "
+                         f"plain {plain_ms:.4f} ms, gather {library_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    return {"name": "extract_patches", "route": "cuda", "source": "rtvm_tpu_torch/csrc/patches.cu",
+            "replaces": "rtvm_tpu/ops/pallas_patches.py:145", "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms}
+
+
+def run_mosaic(torch, dev, frames: np.ndarray):
+    """VideMosaic on frames[0], then N_WINDOWS windows of WINDOW frames.
+    Returns (mosaic, list of WindowAux, seconds per window)."""
+    from rtvm_tpu_torch.mosaic.stitcher import VideMosaic
+
+    m = VideMosaic(frames[0], detector_type="sift", seed=SEED, device=dev)
+    auxs, secs = [], []
+    for wi in range(N_WINDOWS):
+        win = frames[1 + wi * WINDOW : 1 + (wi + 1) * WINDOW]
+        torch.cuda.synchronize()
+        t = time.time()
+        auxs.append(m.process_window(win))
+        torch.cuda.synchronize()
+        secs.append(time.time() - t)
+    return m, auxs, secs
+
+
+def phase_window(torch, dev, frames: np.ndarray, path: np.ndarray, card: str) -> dict:
+    """The SIFT window step on the kernel path, then on the plain path."""
+    import rtvm_tpu_torch.mosaic.stitcher as stitcher_mod
+    import rtvm_tpu_torch.ops.features.sift as sift_mod
+    from rtvm_tpu_torch import kernels
+    from rtvm_tpu_torch.ops.pallas_patches import extract_patches_plain
+    from rtvm_tpu_torch.ops.pallas_warp import warp_plain
+
+    t0 = time.time()
+    kernels.reset_launches()
+    m, auxs, secs = run_mosaic(torch, dev, frames)
+    counts = dict(kernels.launches)
+    n = N_WINDOWS * WINDOW
+    # one warp launch per window; one patch launch per octave per window,
+    # plus one per octave for the first frame's features
+    octaves = m.config.features.sift_octaves
+    want = {"warp": N_WINDOWS, "patches": octaves * (N_WINDOWS + 1)}
+    check(counts == want, f"launch counts {counts}, expected {want}")
+
+    blended = torch.cat([a.blended for a in auxs]).cpu().numpy()
+    ok = torch.cat([a.ok for a in auxs]).cpu().numpy()
+    accepted = int((blended & ok).sum())
+    check(accepted >= MIN_ACCEPTED, f"only {accepted} of {n} frames accepted")
+
+    H_abs = torch.cat([a.H_abs for a in auxs]).cpu().numpy().astype(np.float64)
+    check(np.isfinite(H_abs).all(), "non-finite H_abs")
+    hf, wf = FRAME_H, FRAME_W
+    corners = np.array([[0, 0, 1], [wf, 0, 1], [wf, hf, 1], [0, hf, 1]], np.float64).T
+    got = np.einsum("bij,jk->bik", H_abs, corners)
+    got = (got[:, :2] / got[:, 2:3]).transpose(0, 2, 1)  # [n, 4, 2]
+    shift = path[1 : n + 1] - path[0] + np.array([m.h_offset, m.w_offset])
+    want_c = corners[:2].T[None] + shift[:, None, :]
+    traj_err = float(np.abs(got - want_c)[blended].max())
+    check(traj_err <= TRAJ_TOL_PX, f"corner trajectory off by {traj_err:.3f} px > {TRAJ_TOL_PX}")
+
+    canvas_k = m.state.canvas
+    check(bool(torch.isfinite(canvas_k).all()), "non-finite canvas")
+    check(tuple(canvas_k.shape) == (3, 2 * hf, int(1.2 * wf)), f"canvas shape {tuple(canvas_k.shape)}")
+    fps = (N_WINDOWS - 1) * WINDOW / sum(secs[1:])
+
+    # the same run with the plain versions in place of both kernels
+    saved = stitcher_mod.warp_batch, sift_mod.extract_patches
+    stitcher_mod.warp_batch = warp_plain
+    sift_mod.extract_patches = extract_patches_plain
+    try:
+        kernels.reset_launches()
+        mp, auxs_p, secs_p = run_mosaic(torch, dev, frames)
+        check(sum(kernels.launches.values()) == 0, "the plain run launched a kernel")
+    finally:
+        stitcher_mod.warp_batch, sift_mod.extract_patches = saved
+    mse = float(((canvas_k - mp.state.canvas) ** 2).mean())
+    psnr = math.inf if mse == 0 else 10 * math.log10(255.0**2 / mse)
+    check(psnr >= MIN_PSNR_DB, f"kernel vs plain canvas PSNR {psnr:.2f} dB < {MIN_PSNR_DB}")
+    fps_plain = (N_WINDOWS - 1) * WINDOW / sum(secs_p[1:])
+    phase("window", t0,
+          f"{accepted}/{n} frames accepted, corner trajectory max err {traj_err:.4f} px, "
+          f"launches {counts}, kernel-vs-plain canvas PSNR {psnr:.2f} dB; "
+          f"{fps:.2f} frames/s (plain path {fps_plain:.2f}) over windows 2-{N_WINDOWS}, "
+          f"window s {[round(s, 4) for s in secs]} on {card}")
+    return counts
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: torch is not importable: {e}", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
+        return 2
+    try:
+        import rtvm_tpu_torch  # noqa: F401
+        from rtvm_tpu_torch import kernels
+    except ImportError as e:
+        print(f"chip_smoke: the rtvm_tpu_torch package is not here: {e}", file=sys.stderr)
+        return 3
+
+    dev = torch.device("cuda")
+    try:
+        t0 = time.time()
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60,
+        ).stdout.strip().splitlines()
+        card = smi[0] if smi else "nvidia-smi gave nothing"
+        say(card)
+        phase("setup", t0, f"{torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+                           f"CUDA {torch.version.cuda}; {torch.cuda.device_count()} device(s)")
+
+        t0 = time.time()
+        path = kernels.build()
+        kernels.library()
+        phase("build", t0, f"{path.name}")
+
+        frames, cam = make_clip(np.random.RandomState(SEED), 1 + N_WINDOWS * WINDOW, FRAME_H, FRAME_W)
+        hc, wc = 2 * FRAME_H, int(1.2 * FRAME_W)
+        rows = [phase_warp(torch, dev, frames, hc, wc), phase_patches(torch, dev)]
+        counts = phase_window(torch, dev, frames, cam, card)
+        rows[0]["launches"] = counts["warp"]
+        rows[1]["launches"] = counts["patches"]
+    except CheckFailed as e:
+        say(f"FAIL: {e}")
+        return 1
+    say(json.dumps({"kernels": rows}))
+    say(f"elapsed {time.time() - T_START:.2f} s")
+    say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,23 @@
+"""rtvm_tpu_torch — the PyTorch/CUDA port of rtvm_tpu, one slice at a time.
+
+This slice covers the SIFT window step of the streaming mosaic stitcher
+(``mosaic.stitcher.VideMosaic``). The two kernels the JAX package wrote in
+Pallas for the TPU are hand-written CUDA here (``csrc/warp.cu``,
+``csrc/patches.cu``), built with ``nvcc`` at first use and loaded with ctypes
+(``kernels.py``). Everything else is plain PyTorch.
+
+The package imports neither ``jax`` nor anything of ``rtvm_tpu``. Entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``; without a card and
+without an explicit device they raise (``device.resolve_device``).
+"""
+
+import torch
+
+__version__ = "0.1.0"
+
+# Homographies and geometry must stay in full float32 (the JAX package forces
+# Precision.HIGHEST for the same reason: rounded H entries move warped corners
+# by pixels and compound along the H chain). Stated here rather than relied on
+# as PyTorch's defaults.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,386 @@
+"""The streaming mosaic stitcher, SIFT path (counterpart of
+``rtvm_tpu/mosaic/stitcher.py``).
+
+One window step processes B consecutive frames:
+  1. gray + SIFT detection/description for all B frames at once;
+  2. L2 ratio matching + RANSAC for the B consecutive pairs at once;
+  3. a short sequential pass over the 3x3 chain: validate -> smooth ->
+     compose H_abs = H_old @ H_rel;
+  4. paint: the warp (kernel A, one launch for the window) and every weight
+     map are batched over the window; only the blend recurrence
+     (``blend_apply_cm``) runs frame by frame, as in the JAX stitcher.
+
+Reference behaviours kept as they are: the blend is not renormalised; a match
+or RANSAC failure skips the frame entirely while a validation failure blends
+it at identity; the last accepted frame's features become the next match
+target.
+
+RANSAC draws: pair i of a window draws its hypotheses from a
+``torch.Generator`` seeded from (seed, absolute frame number), so a run
+depends only on the seed and the frames, not on how they were cut into
+windows. A caller may pass the draws instead (``uniforms``), which is how
+the tests replay the JAX package's random stream.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from rtvm_tpu_torch.config import MosaicConfig
+from rtvm_tpu_torch.device import resolve_device
+from rtvm_tpu_torch.geometry import homography as geo
+from rtvm_tpu_torch.ops import color
+from rtvm_tpu_torch.ops import match as match_ops
+from rtvm_tpu_torch.ops import warp as warp_ops
+from rtvm_tpu_torch.ops.features import sift as sift_ops
+from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch
+
+ORB_NOT_PORTED = (
+    "detector_type='orb' is not ported yet: the ORB path (FAST-9, rBRIEF, "
+    "Hamming matching) is the next slice of the PyTorch port"
+)
+
+
+class MosaicState(NamedTuple):
+    """Full resumable pipeline state (the same fields as the JAX package's)."""
+
+    canvas: torch.Tensor  # [3, Hc, Wc] float32
+    union_coarse: torch.Tensor  # [Hc/4, Wc/4] bool mosaic coverage at 4-px cells
+    H_old: torch.Tensor  # [3, 3] float32 frame -> canvas
+    kp: torch.Tensor  # [K, 2] float32 previous-frame keypoints
+    desc: torch.Tensor  # [K, 128] float32
+    kp_valid: torch.Tensor  # [K] bool
+    hbuf: torch.Tensor  # [S, 3, 3] float32 relative-homography history
+    hcount: torch.Tensor  # int64 history fill count
+    frame_idx: torch.Tensor  # int64 frames processed so far (frame 0 included);
+    # kept on the host: it seeds the RANSAC draws
+
+
+class WindowAux(NamedTuple):
+    """Per-frame diagnostics from one window step."""
+
+    num_matches: torch.Tensor  # [B] int64
+    num_inliers: torch.Tensor  # [B] int64
+    H_abs: torch.Tensor  # [B, 3, 3] absolute homographies (frame -> canvas)
+    ok: torch.Tensor  # [B] bool homography accepted (vs identity fallback)
+    blended: torch.Tensor  # [B] bool frame was painted (False: match/RANSAC failure)
+    two_pass: torch.Tensor  # [B] bool H lies in the JAX two-pass warp's regime
+
+
+def state_from_numpy(snap: dict, device) -> MosaicState:
+    """A MosaicState from a checkpoint dict of numpy arrays, as either
+    package's ``VideMosaic.checkpoint()`` writes it."""
+    dev = resolve_device(device)
+
+    def t(name, dtype):
+        return torch.as_tensor(np.array(snap[name]), dtype=dtype).to(dev)
+
+    return MosaicState(
+        canvas=t("canvas", torch.float32),
+        union_coarse=t("union_coarse", torch.bool),
+        H_old=t("H_old", torch.float32),
+        kp=t("kp", torch.float32),
+        desc=t("desc", torch.float32),
+        kp_valid=t("kp_valid", torch.bool),
+        hbuf=t("hbuf", torch.float32),
+        hcount=t("hcount", torch.int64),
+        frame_idx=torch.as_tensor(int(np.asarray(snap["frame_idx"])), dtype=torch.int64),
+    )
+
+
+def _check_config(cfg: MosaicConfig) -> None:
+    if cfg.features.detector_type == "orb":
+        raise NotImplementedError(ORB_NOT_PORTED)
+    if cfg.features.detector_type != "sift":
+        raise ValueError(f"unknown detector_type: {cfg.features.detector_type}")
+    if cfg.auto_grow:
+        raise NotImplementedError("auto_grow is not ported yet (a later slice of the PyTorch port)")
+
+
+def _extract_features(grays: torch.Tensor, cfg: MosaicConfig):
+    """grays [B, H, W] -> (kp [B,K,2], desc [B,K,128], valid [B,K])."""
+    return sift_ops.detect_and_describe(grays, cfg.features)
+
+
+def pair_uniforms(seed: int, first_frame: int, b: int, cfg: MosaicConfig,
+                  device: torch.device) -> torch.Tensor:
+    """RANSAC draws [B, num_hypotheses, K] for pairs first_frame..first_frame+B-1,
+    pair f from a generator seeded with (seed, f)."""
+    nh, k = cfg.ransac.num_hypotheses, cfg.features.max_keypoints
+    out = torch.empty((b, nh, k), dtype=torch.float32, device=device)
+    for i in range(b):
+        g = torch.Generator(device=device)
+        g.manual_seed(((int(seed) & 0x7FFFFFFF) << 32) | ((first_frame + i) & 0xFFFFFFFF))
+        out[i] = torch.rand((nh, k), generator=g, device=device)
+    return out
+
+
+def make_step_body(frame_shape: Tuple[int, int, int], cfg: MosaicConfig):
+    """The window step for a frame shape and config.
+
+    Returns step(state, frames_u8 [B, H, W, 3], seed, fweight, weight_table,
+    uniforms=None) -> (state, WindowAux). `uniforms` [B, num_hypotheses, K]
+    are the pairs' RANSAC draws; by default they come from pair_uniforms."""
+    _check_config(cfg)
+    st = cfg.stabilization
+    rc = cfg.ransac
+    hf, wf = frame_shape[0], frame_shape[1]
+
+    def step(state: MosaicState, frames: torch.Tensor, seed: int, fweight: torch.Tensor,
+             weight_table: torch.Tensor, uniforms: Optional[torch.Tensor] = None):
+        dev = state.canvas.device
+        b = frames.shape[0]
+        frames_cm = frames.to(torch.float32).permute(0, 3, 1, 2).contiguous()  # [B, 3, H, W]
+
+        # --- 1. batched feature extraction ---
+        with record_function("window.features"):
+            kps, descs, valids = _extract_features(color.bgr2gray(frames), cfg)
+
+        # --- 2. batched pairwise match + RANSAC (pair i: frame i vs frame i-1) ---
+        with record_function("window.match_ransac"):
+            kp_prev = torch.cat([state.kp[None], kps[:-1]], dim=0)
+            desc_prev = torch.cat([state.desc[None], descs[:-1]], dim=0)
+            valid_prev = torch.cat([state.kp_valid[None], valids[:-1]], dim=0)
+            m = match_ops.match_l2_ratio(descs, valids, desc_prev, valid_prev, cfg.match.ratio)
+            src, dst, mvalid = match_ops.gather_correspondences(kps, kp_prev, m)
+            if uniforms is None:
+                uniforms = pair_uniforms(seed, int(state.frame_idx), b, cfg, dev)
+            res = geo.ransac_homography(
+                src, dst, mvalid,
+                samples=geo.sample_indices(uniforms, mvalid),
+                num_hypotheses=rc.num_hypotheses,
+                reproj_threshold=rc.reproj_threshold,
+                refine_iterations=rc.refine_iterations,
+                min_matches=rc.min_matches,
+            )
+        H_rels, r_ok = res.H, res.ok
+
+        # --- 3. sequential 3x3 chain: validate -> smooth -> compose ---
+        # A match/RANSAC failure skips the frame (no warp, no blend, no
+        # history push); a validation failure degrades H_rel to identity and
+        # the frame is still blended at the previous pose.
+        with record_function("window.chain"):
+            ok_seq = r_ok & geo.validate_homography(
+                H_rels, st.translation_threshold, st.scale_threshold, st.perspective_threshold
+            )
+            eye = torch.eye(3, dtype=torch.float32, device=dev)
+            H_old, hbuf, hcount = state.H_old, state.hbuf, state.hcount
+            H_abs_list = []
+            for i in range(b):
+                H_v = torch.where(ok_seq[i], H_rels[i], eye)
+                if st.enabled:
+                    hbuf2, hcount2, H_s = geo.smooth_homography_step(hbuf, hcount, H_v, weight_table)
+                else:
+                    hbuf2, hcount2, H_s = hbuf, hcount, H_v
+                hbuf = torch.where(r_ok[i], hbuf2, hbuf)
+                hcount = torch.where(r_ok[i], hcount2, hcount)
+                H_old = torch.where(r_ok[i], H_old @ H_s, H_old)
+                H_abs_list.append(H_old)
+            H_abs_seq = torch.stack(H_abs_list)
+        blended_seq = r_ok
+
+        # --- 4. paint: everything but the blend recurrence is batched ---
+        with record_function("window.paint"):
+            canvas0, union0 = state.canvas, state.union_coarse
+            hc, wc = canvas0.shape[1], canvas0.shape[2]
+            new_seq = warp_batch(frames_cm, inverse_maps(H_abs_seq), hc, wc)
+            wq_seq = warp_ops.frame_weight_eval(
+                warp_ops.frame_weight_params(H_abs_seq, hf, wf, hc, wc), hc, wc
+            )
+            wnew_seq = warp_ops.frame_weight_with_holes(new_seq, wq_seq)
+            wnew_seq = torch.where(blended_seq[:, None, None], wnew_seq, torch.zeros_like(wnew_seq))
+            foot_seq = warp_ops.coarse_footprint(wnew_seq)
+            # the mosaic mask before frame i is union0 OR the first i footprints
+            inc = torch.cumsum(foot_seq.to(torch.int32), dim=0) > 0
+            unions_before = torch.cat([union0[None], union0[None] | inc[:-1]], dim=0)
+            ups = warp_ops.upsample_weight(warp_ops.coarse_union_distance(unions_before), hc, wc)
+            cover0 = torch.amax(canvas0, dim=0) > 0.0
+            incc = torch.cumsum((wnew_seq > 0.0).to(torch.int32), dim=0) > 0
+            covers_before = torch.cat([cover0[None], cover0[None] | incc[:-1]], dim=0)
+            wold_seq = torch.where(
+                covers_before, torch.clamp(ups - warp_ops.CELL_PX / 2.0, min=1.0), torch.zeros_like(ups)
+            )
+            alpha_seq, beta_seq = warp_ops.blend_weights_smoothed(wnew_seq, wold_seq)
+            canvas = canvas0
+            for i in range(b):
+                canvas = warp_ops.blend_apply_cm(
+                    canvas, new_seq[i], wnew_seq[i], wold_seq[i], alpha_seq[i], beta_seq[i]
+                )
+
+        # last ACCEPTED frame's features become the next matching target
+        any_ok = torch.any(blended_seq)
+        last = (b - 1 - torch.argmax(torch.flip(blended_seq, (0,)).to(torch.int32))).reshape(1)
+        kp_l = torch.where(any_ok, kps.index_select(0, last)[0], state.kp)
+        desc_l = torch.where(any_ok, descs.index_select(0, last)[0], state.desc)
+        valid_l = torch.where(any_ok, valids.index_select(0, last)[0], state.kp_valid)
+
+        new_state = MosaicState(
+            canvas=canvas, union_coarse=union0 | inc[-1], H_old=H_old,
+            kp=kp_l, desc=desc_l, kp_valid=valid_l, hbuf=hbuf, hcount=hcount,
+            frame_idx=state.frame_idx + b,
+        )
+        aux = WindowAux(
+            num_matches=torch.sum(mvalid, dim=-1), num_inliers=res.num_inliers,
+            H_abs=H_abs_seq, ok=ok_seq, blended=blended_seq,
+            two_pass=warp_ops.two_pass_regime_ok(H_abs_seq, hc, wc),
+        )
+        return new_state, aux
+
+    return step
+
+
+def make_window_step(frame_shape: Tuple[int, int, int], cfg: MosaicConfig):
+    """The single-window step (PyTorch runs eagerly: nothing to compile)."""
+    return make_step_body(frame_shape, cfg)
+
+
+def make_clip_step(frame_shape: Tuple[int, int, int], cfg: MosaicConfig):
+    """Multi-window step: runs W whole windows [W, B, H, Wd, 3] one after the
+    other, carrying the state. Returns clip(state, windows, seed, fweight,
+    wtable) -> (state, WindowAux stacked over W)."""
+    body = make_step_body(frame_shape, cfg)
+
+    def clip(state, windows, seed, fweight, wtable):
+        auxs = []
+        for w in range(windows.shape[0]):
+            state, aux = body(state, windows[w], seed, fweight, wtable)
+            auxs.append(aux)
+        return state, WindowAux(*(torch.stack(f) for f in zip(*auxs)))
+
+    return clip
+
+
+class VideMosaic:
+    """Counterpart of the JAX package's VideMosaic for the SIFT path.
+
+    Frames are BGR uint8 arrays of a fixed shape (set by the first frame).
+    Runs on ``device`` (``cuda`` unless the caller asks for another)."""
+
+    def __init__(
+        self,
+        first_image,
+        output_height_times: float = 2.0,
+        output_width_times: float = 1.2,
+        detector_type: str = "sift",
+        config: Optional[MosaicConfig] = None,
+        seed: int = 0,
+        device=None,
+    ):
+        if config is None:
+            config = MosaicConfig(
+                output_height_times=output_height_times,
+                output_width_times=output_width_times,
+            )
+        if detector_type != config.features.detector_type:
+            config = dataclasses.replace(
+                config, features=dataclasses.replace(config.features, detector_type=detector_type)
+            )
+        _check_config(config)
+        self.config = config
+        self.detector_type = config.features.detector_type
+        self.device = resolve_device(device)
+        self.seed = int(seed)
+
+        first_image = np.asarray(first_image)
+        h, w, c = first_image.shape
+        self.frame_shape = (h, w, c)
+        if config.canvas_hw is not None:
+            hc, wc = config.canvas_hw
+            r0, c0 = config.seed_offset or (hc - h, int(wc / 2 - w / 2))
+            self.w_offset = int(np.clip(r0, 0, hc - h))  # row offset
+            self.h_offset = int(np.clip(c0, 0, wc - w))  # col offset
+        else:
+            hc = int(config.output_height_times * h)
+            wc = int(config.output_width_times * w)
+            # frame 0 sits at the bottom, centered in x
+            self.w_offset = hc - h
+            self.h_offset = int(wc / 2 - w / 2)
+        self.canvas_shape = (hc, wc, c)
+
+        self._fweight = torch.from_numpy(warp_ops.edge_distance_px(h, w)).to(self.device)
+        self._wtable = geo.smoothing_weights(config.stabilization.history_size, self.device)
+        self._step = make_window_step(self.frame_shape, config)
+        self._clip = make_clip_step(self.frame_shape, config)
+        self.state = self._init_state(first_image)
+
+    def _frames(self, frames) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(frames), dtype=torch.uint8).to(self.device)
+
+    def _init_state(self, first_image: np.ndarray) -> MosaicState:
+        h, w, c = self.frame_shape
+        hc, wc, _ = self.canvas_shape
+        dev = self.device
+        f = self._frames(first_image)
+        kp, desc, valid = _extract_features(color.bgr2gray(f)[None], self.config)
+        canvas = torch.zeros((c, hc, wc), dtype=torch.float32, device=dev)
+        canvas[:, self.w_offset : self.w_offset + h, self.h_offset : self.h_offset + w] = (
+            f.to(torch.float32).permute(2, 0, 1)
+        )
+        seed_w = torch.zeros((hc, wc), dtype=torch.float32, device=dev)
+        seed_w[self.w_offset : self.w_offset + h, self.h_offset : self.h_offset + w] = self._fweight
+        s = self.config.stabilization.history_size
+        return MosaicState(
+            canvas=canvas,
+            union_coarse=warp_ops.coarse_footprint(seed_w),
+            H_old=torch.tensor(
+                [[1.0, 0.0, self.h_offset], [0.0, 1.0, self.w_offset], [0.0, 0.0, 1.0]],
+                dtype=torch.float32, device=dev,
+            ),
+            kp=kp[0], desc=desc[0], kp_valid=valid[0],
+            hbuf=torch.eye(3, dtype=torch.float32, device=dev).repeat(s, 1, 1),
+            hcount=torch.zeros((), dtype=torch.int64, device=dev),
+            frame_idx=torch.ones((), dtype=torch.int64),
+        )
+
+    def process_window(self, frames, uniforms: Optional[torch.Tensor] = None) -> WindowAux:
+        """Process a [B, H, W, 3] uint8 window of consecutive frames.
+        `uniforms` optionally gives the pairs' RANSAC draws (see make_step_body)."""
+        self.state, aux = self._step(
+            self.state, self._frames(frames), self.seed, self._fweight, self._wtable, uniforms
+        )
+        return aux
+
+    def process_clip(self, windows) -> WindowAux:
+        """Process [W, B, H, Wd, 3] uint8 windows in one call (see make_clip_step)."""
+        self.state, aux = self._clip(
+            self.state, self._frames(windows), self.seed, self._fweight, self._wtable
+        )
+        return aux
+
+    def process_frame(self, frame_cur, frame_count: int = 0) -> bool:
+        """Single-frame path. Returns True if the frame's homography was accepted."""
+        aux = self.process_window(np.asarray(frame_cur)[None])
+        return bool(aux.ok[0])
+
+    @property
+    def output_img(self) -> np.ndarray:
+        """Canvas as a [Hc, Wc, 3] float array."""
+        return self.state.canvas.permute(1, 2, 0).cpu().numpy()
+
+    @property
+    def H_old(self) -> np.ndarray:
+        return self.state.H_old.cpu().numpy()
+
+    def checkpoint(self) -> dict:
+        """Snapshot of the full state as numpy arrays, with the JAX package's
+        keys and dtypes (so either package can restore it)."""
+        s = self.state
+        return {
+            "canvas": s.canvas.cpu().numpy(),
+            "union_coarse": s.union_coarse.cpu().numpy(),
+            "H_old": s.H_old.cpu().numpy(),
+            "kp": s.kp.cpu().numpy(),
+            "desc": s.desc.cpu().numpy(),
+            "kp_valid": s.kp_valid.cpu().numpy(),
+            "hbuf": s.hbuf.cpu().numpy(),
+            "hcount": np.int32(s.hcount.item()),
+            "frame_idx": np.int32(s.frame_idx.item()),
+        }
+
+    def restore(self, snap: dict) -> None:
+        self.state = state_from_numpy(snap, self.device)

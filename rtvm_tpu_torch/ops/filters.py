@@ -1,0 +1,90 @@
+"""Separable filters (counterpart of ``rtvm_tpu/ops/filters.py``).
+
+A 1-D filter with edge-replicate padding is a banded matrix with the clipped
+taps folded into the border rows, so each pass is one matrix product on the
+last or second-to-last axis: plain PyTorch, in full float32 (TF32 is off, see
+the package ``__init__``).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=64)
+def gaussian_kernel1d(sigma: float, radius: int | None = None) -> np.ndarray:
+    """1-D Gaussian taps; matches cv2.getGaussianKernel for odd sizes."""
+    if radius is None:
+        radius = max(1, int(math.ceil(3.0 * sigma)))
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-(x**2) / (2.0 * sigma**2))
+    return (k / k.sum()).astype(np.float32)
+
+
+def band_matrix(taps: np.ndarray, n: int) -> np.ndarray:
+    """[n, n] float32 B with (B @ x)[i] = sum_t taps[t] * x[clip(i + t - r)]:
+    a 1-D correlation with edge-replicate padding."""
+    r = (taps.shape[0] - 1) // 2
+    b = np.zeros((n, n), np.float32)
+    rows = np.arange(n)
+    for t in range(taps.shape[0]):
+        np.add.at(b, (rows, np.clip(rows + t - r, 0, n - 1)), taps[t])
+    return b
+
+
+@functools.lru_cache(maxsize=64)
+def _band_tensor(taps_key: tuple, n: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(band_matrix(np.asarray(taps_key, np.float32), n)).to(device)
+
+
+def conv1d_edge(img: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
+    """Correlate [..., H, W] along axis -1 or -2 with edge-replicate padding."""
+    key = tuple(float(t) for t in taps)
+    if axis == -1:
+        b = _band_tensor(key, img.shape[-1], img.device)
+        return torch.matmul(img, b.T)
+    b = _band_tensor(key, img.shape[-2], img.device)
+    return torch.matmul(b, img)
+
+
+def gaussian_blur(img: torch.Tensor, sigma: float, radius: int | None = None) -> torch.Tensor:
+    """Separable Gaussian blur of a [..., H, W] float image."""
+    taps = gaussian_kernel1d(sigma, radius)
+    return conv1d_edge(conv1d_edge(img, taps, axis=-1), taps, axis=-2)
+
+
+def _shift(img: torch.Tensor, off: int, dim: int, fill: float) -> torch.Tensor:
+    """out[i] = img[i - off] along dim, `fill` where that falls outside."""
+    n = img.shape[dim]
+    out = torch.full_like(img, fill)
+    if off >= 0:
+        out.narrow(dim, off, n - off).copy_(img.narrow(dim, 0, n - off))
+    else:
+        out.narrow(dim, 0, n + off).copy_(img.narrow(dim, -off, n + off))
+    return out
+
+
+def maxpool3x3(img: torch.Tensor) -> torch.Tensor:
+    """3x3 max filter with SAME padding."""
+    ninf = -math.inf if img.is_floating_point() else torch.iinfo(img.dtype).min
+    d = img.dim()
+    mx = torch.maximum(img, torch.maximum(_shift(img, 1, d - 1, ninf), _shift(img, -1, d - 1, ninf)))
+    return torch.maximum(mx, torch.maximum(_shift(mx, 1, d - 2, ninf), _shift(mx, -1, d - 2, ninf)))
+
+
+def minmaxpool3x3(img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(max, min) 3x3 filters with SAME padding. Edge replication is exact for
+    both: a border window re-reads an in-window value."""
+    p = torch.cat([img[..., :1, :], img, img[..., -1:, :]], dim=-2)
+    a, b, c = p[..., :-2, :], p[..., 1:-1, :], p[..., 2:, :]
+    rmax = torch.maximum(a, torch.maximum(b, c))
+    rmin = torch.minimum(a, torch.minimum(b, c))
+    pmax = torch.cat([rmax[..., :1], rmax, rmax[..., -1:]], dim=-1)
+    pmin = torch.cat([rmin[..., :1], rmin, rmin[..., -1:]], dim=-1)
+    mx = torch.maximum(pmax[..., :-2], torch.maximum(pmax[..., 1:-1], pmax[..., 2:]))
+    mn = torch.minimum(pmin[..., :-2], torch.minimum(pmin[..., 1:-1], pmin[..., 2:]))
+    return mx, mn

@@ -1,0 +1,136 @@
+"""Parity of the PyTorch port's SIFT path with the JAX package (CPU), including
+kernel B's plain version against the JAX patch extractors."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rtvm_tpu.config import FeatureConfig
+from rtvm_tpu.ops import color as JC
+from rtvm_tpu.ops.features import sift as JSF
+from rtvm_tpu.ops.pallas_patches import extract_patches_pallas
+from rtvm_tpu_torch.config import FeatureConfig as TFeatureConfig
+from rtvm_tpu_torch.ops.features import sift as TSF
+from rtvm_tpu_torch.ops.pallas_patches import extract_patches, extract_patches_plain
+
+torch.set_num_threads(1)  # tier 1 runs several test workers at once
+
+POS_TOL_PX = 1e-3  # a keypoint counts as identical when its slot agrees to this
+MIN_IDENTICAL = 0.98
+DESC_TOL = 1e-4
+# The JAX descriptor rounds the rotation-bin fraction to bfloat16, so a 1e-7
+# float32 difference in the pyramid (another summation order) can move an
+# identical keypoint's descriptor by one bf16 step of that fraction, ~2e-4.
+# Such keypoints may be at most this share, and stay within DESC_TOL_STEP.
+DESC_MAX_OVER = 0.02
+DESC_TOL_STEP = 1e-3
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def test_octave_quotas_and_static_tables_are_the_jax_ones():
+    assert TSF._octave_quotas(700, 4, 4.0) == JSF._octave_quotas(700, 4, 4.0) == [529, 131, 32, 8]
+    jo, js = JSF._static_tables(12.0)
+    to, ts = TSF._static_tables(12.0)
+    np.testing.assert_array_equal(to, jo)
+    np.testing.assert_array_equal(ts, js)
+
+
+def test_octave_levels_match_jax():
+    base = np.random.RandomState(0).rand(90, 160).astype(np.float32)
+    s = 3
+    sig = np.array([1.6 * 2 ** (l / s) for l in range(s + 3)], np.float32)
+    deltas = np.sqrt(np.maximum(sig**2 - sig[0] ** 2, 0.0))
+    ref = np.asarray(JSF._octave_levels(jnp.asarray(base), deltas))
+    out = TSF._octave_levels(_t(base)[None], deltas)[0].numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+def _pallas_case():
+    """The tests/test_pallas.py patch case: s=3, h=64, w=96, q=37."""
+    rng = np.random.RandomState(3)
+    s, h, w = 3, 64, 96
+    g = rng.rand(s, h, w).astype(np.float32)
+    q = 37
+    xy = np.stack([rng.randint(0, w, q), rng.randint(0, h, q)], -1).astype(np.float32)
+    lvl = rng.randint(1, s + 1, q).astype(np.int32)
+    return g, xy, lvl
+
+
+def test_patch_plain_version_is_byte_identical_to_jax_extractors():
+    g, xy, lvl = _pallas_case()
+    s, h, w = g.shape
+    out = TSF._extract_level_patches(_t(g)[None], _t(xy)[None], _t(lvl)[None])[0].numpy()
+    ref_xla = np.asarray(JSF._extract_level_patches(jnp.asarray(g), jnp.asarray(xy), jnp.asarray(lvl)))
+    np.testing.assert_array_equal(out, ref_xla)
+    half = JSF.PATCH // 2
+    ys = np.clip(xy[:, 1].astype(np.int32) - half, 0, h - JSF.PATCH - 2) + (lvl - 1) * h
+    xs = np.clip(xy[:, 0].astype(np.int32) - half, 0, w - JSF.PATCH)
+    ref_pallas = np.asarray(extract_patches_pallas(
+        jnp.asarray(g.reshape(s * h, w)), jnp.asarray(ys), jnp.asarray(xs), JSF.PATCH, interpret=True))
+    np.testing.assert_array_equal(out, ref_pallas)
+    direct = extract_patches_plain(_t(g.reshape(1, s * h, w)), _t(ys)[None], _t(xs)[None]).numpy()[0]
+    np.testing.assert_array_equal(direct, ref_pallas)
+
+
+def test_patch_wrapper_uses_plain_on_cpu_and_checks_its_inputs():
+    g, xy, lvl = _pallas_case()
+    s, h, w = g.shape
+    stack = _t(g.reshape(1, s * h, w))
+    ys = torch.randint(0, s * h - 32, (1, 5), dtype=torch.int32)
+    xs = torch.randint(0, w - 32, (1, 5), dtype=torch.int32)
+    assert torch.equal(extract_patches(stack, ys, xs), extract_patches_plain(stack, ys, xs))
+    with pytest.raises(TypeError):
+        extract_patches(stack.double(), ys, xs)
+    with pytest.raises(TypeError):
+        extract_patches(stack, ys.long(), xs)
+    with pytest.raises(ValueError):
+        extract_patches(stack[0], ys, xs)
+
+
+def test_orientation_and_descriptors_match_jax_on_the_same_patches():
+    rng = np.random.RandomState(5)
+    q = 200
+    # smooth random patches: a few low-frequency cosines each
+    yy, xx = np.mgrid[0:32, 0:32].astype(np.float32)
+    patches = np.zeros((q, 32, 32), np.float32)
+    for _ in range(4):
+        fx, fy, ph = rng.uniform(0.05, 0.4, (3, q, 1, 1))
+        patches += rng.rand(q, 1, 1).astype(np.float32) * np.cos(fx * xx + fy * yy + 6 * ph)
+    valid = rng.rand(q) > 0.1
+    sigma_desc = 6.0 * 2.0159
+    jt, jd = jax.jit(lambda p, v: JSF._orientation_and_descriptors(p, v, sigma_desc))(
+        jnp.asarray(patches), jnp.asarray(valid))
+    tt, td = TSF._orientation_and_descriptors(_t(patches), _t(valid), sigma_desc)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=DESC_TOL)
+
+
+@pytest.fixture(scope="module")
+def sift_both(textured_image):
+    gray = np.asarray(JC.bgr2gray(jnp.asarray(textured_image)))
+    jfn = jax.jit(lambda g: JSF.detect_and_describe(g, FeatureConfig()))
+    jxy, jd, jv = (np.asarray(a) for a in jfn(jnp.asarray(gray)))
+    txy, td, tv = TSF.detect_and_describe(_t(gray)[None], TFeatureConfig())
+    return (jxy, jd, jv), (txy[0].numpy(), td[0].numpy(), tv[0].numpy())
+
+
+def test_detect_and_describe_keypoints_match_jax(sift_both):
+    (jxy, jd, jv), (txy, td, tv) = sift_both
+    assert jv.sum() > 200
+    same = (np.abs(jxy - txy).max(axis=1) <= POS_TOL_PX) & (jv == tv)
+    assert same.mean() >= MIN_IDENTICAL, same.mean()
+    assert (same & jv).sum() >= MIN_IDENTICAL * jv.sum()
+
+
+def test_detect_and_describe_descriptors_match_jax(sift_both):
+    (jxy, jd, jv), (txy, td, tv) = sift_both
+    same = (np.abs(jxy - txy).max(axis=1) <= POS_TOL_PX) & jv & tv
+    err = np.abs(jd - td).max(axis=1)[same]
+    assert (err > DESC_TOL).mean() <= DESC_MAX_OVER, np.sort(err)[-10:]
+    assert err.max() <= DESC_TOL_STEP, err.max()
+    # invalid slots carry zero descriptors and zero positions in both
+    assert not np.any(td[~tv]) and not np.any(txy[~tv])
