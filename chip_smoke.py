@@ -5,12 +5,17 @@
 
 Phases, each printed with its result and seconds on its own line:
   1. setup: the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build: the CUDA kernels (csrc/*.cu -> one nvcc call -> ctypes);
-  3. kernel A (the warp) against its plain PyTorch version on the card;
-  4. kernel B (the SIFT patch copy) against its plain version, every octave;
+  2. build: the CUDA kernels (csrc/*.cu -> one nvcc call -> ctypes), with
+     each kernel's registers, shared memory and spills from ptxas;
+  3. kernel A (the warp) against its plain PyTorch version on four fixed maps;
+  4. kernel B (the SIFT patch copy) against its plain version on random
+     origins at every octave shape, then timed on the origins the SIFT stages
+     produce for one 16-frame window of the clip;
   5. the SIFT window step: 3 windows of 16 frames of a seeded synthetic world
      through VideMosaic.process_window, checked against the known camera path
      and against the same run with the plain versions swapped in;
+  6. kernel A against its plain version on the maps of a window of that run,
+     and timed through warp_batch on them;
 then one JSON line of per-kernel numbers, the elapsed time, and as the last
 line {"ok": true, "device": {...}}. Any failed check exits non-zero. Without
 a CUDA device it prints no result and exits non-zero.
@@ -20,7 +25,6 @@ Imports torch, numpy and rtvm_tpu_torch only.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import math
 import subprocess
@@ -35,7 +39,6 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 FRAME_H, FRAME_W = 360, 640  # BASELINE config 2 frames
 WINDOW = 16
 N_WINDOWS = 3
-WARP_TOL = 1e-3
 MIN_ACCEPTED = 47
 TRAJ_TOL_PX = 2.0
 MIN_PSNR_DB = 60.0
@@ -139,6 +142,35 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, kernel: str, reps: int = 10):
+    """Mean time on the card of the kernel named `kernel` per call of fn, from
+    torch.profiler; None when the profiler shows no such kernel."""
+    cuda = torch.autograd.DeviceType.CUDA
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == cuda and e.name == kernel]
+    return sum(e.time_range.elapsed_us() for e in evs) / 1e3 / len(evs) if evs else None
+
+
+def host_us(torch, fn, reps: int = 50) -> float:
+    """Host time of one call of fn, without waiting for the card."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) * 1e6 / reps
+    torch.cuda.synchronize()
+    return us
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / F32_OPS_PER_S * 1e3
@@ -148,10 +180,8 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
 # ----------------------------------------------------------------- phases
 
 
-def phase_warp(torch, dev, frames_u8: np.ndarray, hc: int, wc: int) -> dict:
-    """Kernel A against warp_plain on the four H cases, then timed at the
-    main path's shape (one launch for a 16-frame window)."""
-    from rtvm_tpu_torch import kernels
+def phase_warp(torch, dev, frames_u8: np.ndarray, hc: int, wc: int) -> None:
+    """Kernel A against warp_plain on the four fixed maps: bitwise equal."""
     from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch, warp_plain
 
     t0 = time.time()
@@ -167,90 +197,146 @@ def phase_warp(torch, dev, frames_u8: np.ndarray, hc: int, wc: int) -> dict:
     for i, n in enumerate(names):
         check(bool(torch.isfinite(out_k[i]).all()), f"warp {n}: non-finite output")
         check(float(out_k[i].abs().sum()) > 0, f"warp {n}: empty output")
-    err = max(errs.values())
-    check(err <= WARP_TOL, f"warp kernel vs plain max |d| {err} > {WARP_TOL} ({errs})")
+    check(torch.equal(out_k, out_p), f"warp kernel differs from plain: max |d| per case {errs}")
+    phase("warp", t0, f"bitwise equal to warp_plain on {names}")
 
-    # timing at the main path's shape: B = 16 frames, one launch
-    b = WINDOW
-    idx = [i % len(names) for i in range(b)]
-    frb = torch.as_tensor(frames_u8[:b], device=dev).to(torch.float32).permute(0, 3, 1, 2).contiguous()
-    Gb = G[idx].contiguous()
-    out = torch.empty((b, 3, hc, wc), dtype=torch.float32, device=dev)
-    lib = kernels.library()
-    g_host = np.ascontiguousarray(Gb.reshape(b, 9).cpu().numpy())
-    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
-    def launch():
-        code = lib.rtvm_warp_bilinear(
-            ctypes.c_void_p(frb.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            g_host.ctypes.data_as(ctypes.c_void_p), b, 3, FRAME_H, FRAME_W, hc, wc, stream,
-        )
-        kernels.check(code, "rtvm_warp_bilinear")
+def warp_real(torch, dev, frames_u8: np.ndarray, H_abs, hc: int, wc: int) -> dict:
+    """Kernel A on the maps of a window of the main-path run: bitwise equal to
+    warp_plain, then timed through warp_batch beside warp_plain and
+    grid_sample on the same maps, and on maps that put the frame far off the
+    canvas (every tile empty: the kernel's store-only floor)."""
+    from rtvm_tpu_torch.ops.pallas_warp import (TILE_H, TILE_W, inverse_maps, tile_is_empty,
+                                                warp_batch, warp_plain)
 
-    ms = cuda_ms(torch, launch)
-    plain_ms = cuda_ms(torch, lambda: warp_plain(frb, Gb, hc, wc), reps=5)
-    # library yardstick: grid_sample on the same sample points (timed only)
+    t0 = time.time()
+    b = H_abs.shape[0]
+    fr = torch.as_tensor(frames_u8, device=dev).to(torch.float32).permute(0, 3, 1, 2).contiguous()
+    G = inverse_maps(H_abs.to(device=dev, dtype=torch.float32)).contiguous()
+    out_k = warp_batch(fr, G, hc, wc)
+    out_p = warp_plain(fr, G, hc, wc)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    check(torch.equal(out_k, out_p), f"warp kernel vs plain on the window's maps: max |d| {err}")
+    g_rows = G.reshape(b, 9).cpu().tolist()
+    tiles = [(x, y) for y in range(0, hc, TILE_H) for x in range(0, wc, TILE_W)]
+    empty = sum(tile_is_empty(g, x, y, min(x + TILE_W, wc) - 1, min(y + TILE_H, hc) - 1,
+                              FRAME_H, FRAME_W) for g in g_rows for x, y in tiles)
+    covered = float((out_p.amax(dim=1) > 0).float().mean())
+
+    ms = cuda_ms(torch, lambda: warp_batch(fr, G, hc, wc))
+    plain_ms = cuda_ms(torch, lambda: warp_plain(fr, G, hc, wc), reps=5)
     ys = torch.arange(hc, dtype=torch.float32, device=dev)[None, :, None]
     xs = torch.arange(wc, dtype=torch.float32, device=dev)[None, None, :]
-    g = Gb.reshape(b, 9, 1, 1)
+    g = G.reshape(b, 9, 1, 1)
     den = g[:, 6] * xs + g[:, 7] * ys + g[:, 8]
     sx = (g[:, 0] * xs + g[:, 1] * ys + g[:, 2]) / den
     sy = (g[:, 3] * xs + g[:, 4] * ys + g[:, 5]) / den
     grid = torch.stack([sx * (2.0 / (FRAME_W - 1)) - 1.0, sy * (2.0 / (FRAME_H - 1)) - 1.0], -1)
     library_ms = cuda_ms(torch, lambda: torch.nn.functional.grid_sample(
-        frb, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
-    nbytes = b * (3 * FRAME_H * FRAME_W * 4 + 3 * hc * wc * 4)
+        fr, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
+    far = torch.tensor([[1, 0, 1e5], [0, 1, 1e5], [0, 0, 1]], dtype=torch.float32, device=dev)
+    G_far = inverse_maps(far.expand(b, 3, 3)).contiguous()
+    floor_ms = cuda_ms(torch, lambda: warp_batch(fr, G_far, hc, wc))
+    ms_again = cuda_ms(torch, lambda: warp_batch(fr, G, hc, wc))
+    dev_ms = device_ms(torch, lambda: warp_batch(fr, G, hc, wc), "rtvm_warp_bilinear_kernel")
+    wrap_us = host_us(torch, lambda: warp_batch(fr, G, hc, wc))
+    out_bytes = b * 3 * hc * wc * 4
+    nbytes = b * (3 * FRAME_H * FRAME_W * 4 + 9 * 4) + out_bytes
     nops = b * hc * wc * (12 + 3 * 12)  # position math + 3 channels of taps and blends
     bound_ms, bound_by = bound(nbytes, nops)
-    phase("warp", t0, f"max|d| {err:.3g} per case {errs}; per 16-frame launch: kernel {ms:.4f} ms, "
-                      f"plain {plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    phase("warp_real", t0,
+          f"bitwise equal to warp_plain on window 1's maps (B={b}); {covered:.4f} of the canvas "
+          f"covered, {empty} of {b * len(tiles)} tiles skipped; through warp_batch: kernel "
+          f"{ms:.4f} ms (again {ms_again:.4f}; on the card {fmt_ms(dev_ms)}, host "
+          f"{wrap_us:.1f} us a call), plain {plain_ms:.4f} ms, grid_sample "
+          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_ms / ms:.3f} of it); every tile "
+          f"empty: {floor_ms:.4f} ms (store bound {out_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
     return {"name": "warp_bilinear", "route": "cuda", "source": "rtvm_tpu_torch/csrc/warp.cu",
             "replaces": "rtvm_tpu/ops/pallas_warp.py:127", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "device_ms": dev_ms}
 
 
-def phase_patches(torch, dev) -> dict:
-    """Kernel B against its plain version at every octave shape of the main
-    path (B = 16 frames, one launch per octave); the times are one window's
-    four launches together."""
-    from rtvm_tpu_torch.ops.features.sift import PATCH, _octave_quotas
-    from rtvm_tpu_torch.ops.pallas_patches import extract_patches, extract_patches_plain
+def _gather_octaves(torch, stacks, ys, xs):
+    """The library yardstick: one advanced-indexing gather per octave."""
+    outs = []
+    for s, y, x in zip(stacks, ys, xs):
+        d = torch.arange(32, device=s.device)
+        bi = torch.arange(s.shape[0], device=s.device)[:, None, None, None]
+        outs.append(s[bi, y.long()[:, :, None, None] + d[:, None], x.long()[:, :, None, None] + d])
+    return outs
+
+
+def phase_patches(torch, dev, frames_u8: np.ndarray) -> dict:
+    """Kernel B against its plain version: on random origins at every octave
+    shape of the main path (strided level views, as the SIFT stages pass
+    them), then on the origins the SIFT stages produce for window 1 of the
+    clip, where it is timed (one launch per window) beside its plain version
+    and the per-octave gathers."""
+    from rtvm_tpu_torch.config import FeatureConfig
+    from rtvm_tpu_torch.ops import color
+    from rtvm_tpu_torch.ops.features.sift import PATCH, _octave_quotas, detect_pyramid
+    from rtvm_tpu_torch.ops.pallas_patches import (extract_patches_octaves,
+                                                   extract_patches_octaves_plain)
 
     t0 = time.time()
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     b, s = WINDOW, 3
-    quotas = _octave_quotas(700, 4, 4.0)
-    ms = plain_ms = library_ms = bound_ms = 0.0
-    err = 0.0
-    shapes = []
-    for o, q in enumerate(quotas):
+    stacks, ys, xs = [], [], []
+    for o, q in enumerate(_octave_quotas(700, 4, 4.0)):
         h, w = FRAME_H >> o, FRAME_W >> o
-        stack = torch.rand((b, s * h, w), generator=gen, device=dev)
-        ys = torch.randint(0, s * h - PATCH + 1, (b, q), generator=gen, device=dev, dtype=torch.int32)
-        xs = torch.randint(0, w - PATCH + 1, (b, q), generator=gen, device=dev, dtype=torch.int32)
-        out_k = extract_patches(stack, ys, xs)
-        out_p = extract_patches_plain(stack, ys, xs)
-        torch.cuda.synchronize()
-        check(torch.equal(out_k, out_p), f"patches octave {o}: kernel differs from plain")
-        err = max(err, float((out_k - out_p).abs().max()))
-        ms += cuda_ms(torch, lambda: extract_patches(stack, ys, xs))
-        plain_ms += cuda_ms(torch, lambda: extract_patches_plain(stack, ys, xs))
+        levels = torch.rand((b, s + 3, h, w), generator=gen, device=dev)
+        stacks.append(levels[:, 1 : s + 1].reshape(b, s * h, w))
+        ys.append(torch.randint(0, s * h - PATCH + 1, (b, q), generator=gen, device=dev,
+                                dtype=torch.int32))
+        xs.append(torch.randint(0, w - PATCH + 1, (b, q), generator=gen, device=dev,
+                                dtype=torch.int32))
+    out_k = extract_patches_octaves(stacks, ys, xs)
+    out_p = extract_patches_octaves_plain(stacks, ys, xs)
+    torch.cuda.synchronize()
+    check(torch.equal(out_k, out_p), "patches on random origins: kernel differs from plain")
+    shapes = [f"[{tuple(st.shape)}]x{y.shape[1]}" for st, y in zip(stacks, ys)]
+
+    # the origins the SIFT stages produce for window 1 of the clip
+    win = torch.as_tensor(frames_u8[1 : 1 + WINDOW], device=dev)
+    _, _, stacks, ys, xs, _ = detect_pyramid(color.bgr2gray(win), FeatureConfig())
+    out_k = extract_patches_octaves(stacks, ys, xs)
+    out_p = extract_patches_octaves_plain(stacks, ys, xs)
+    torch.cuda.synchronize()
+    check(torch.equal(out_k, out_p), "patches on the SIFT origins: kernel differs from plain")
+    err = float((out_k - out_p).abs().max())
+    ms = cuda_ms(torch, lambda: extract_patches_octaves(stacks, ys, xs))
+    plain_ms = cuda_ms(torch, lambda: extract_patches_octaves_plain(stacks, ys, xs))
+    library_ms = cuda_ms(torch, lambda: _gather_octaves(torch, stacks, ys, xs))
+    ms_again = cuda_ms(torch, lambda: extract_patches_octaves(stacks, ys, xs))
+    dev_ms = device_ms(torch, lambda: extract_patches_octaves(stacks, ys, xs),
+                       "rtvm_patches_tma_kernel")
+    wrap_us = host_us(torch, lambda: extract_patches_octaves(stacks, ys, xs))
+    # bytes this run must move: every stack pixel some patch covers, read once;
+    # the origins; every patch written once
+    read = 0
+    for st, y, x in zip(stacks, ys, xs):
+        touched = torch.zeros(st.shape, dtype=torch.bool, device=dev)
         d = torch.arange(PATCH, device=dev)
-        rows = (ys.long()[:, :, None, None] + d[:, None])
-        cols = (xs.long()[:, :, None, None] + d[None, :])
-        bi = torch.arange(b, device=dev)[:, None, None, None]
-        library_ms += cuda_ms(torch, lambda: stack[bi, rows, cols])
-        patch_bytes = q * PATCH * PATCH * 4
-        bound_ms += bound(b * (min(s * h * w * 4, patch_bytes) + patch_bytes), 0)[0]
-        shapes.append(f"[{s * h},{w}]x{q}")
-    phase("patches", t0, f"byte-identical at {shapes}; per window (4 launches): kernel {ms:.4f} ms, "
-                         f"plain {plain_ms:.4f} ms, gather {library_ms:.4f} ms, bound {bound_ms:.4f} ms")
+        y0 = y.long().clamp(0, st.shape[1] - PATCH)[:, :, None, None] + d[:, None]
+        x0 = x.long().clamp(0, st.shape[2] - PATCH)[:, :, None, None] + d
+        touched[torch.arange(b, device=dev)[:, None, None, None], y0, x0] = True
+        read += int(touched.sum()) * 4 + 2 * y.numel() * 4
+    written = out_k.numel() * 4
+    bound_ms = bound(read + written, 0)[0]
+    phase("patches", t0,
+          f"byte-identical on random origins at {shapes} and on window 1's SIFT origins "
+          f"({out_k.shape[1]} patches a frame, {read / 1e6:.2f} MB read, {written / 1e6:.2f} MB "
+          f"written); per window (1 launch): kernel {ms:.4f} ms (again {ms_again:.4f}; on the "
+          f"card {fmt_ms(dev_ms)}, host {wrap_us:.1f} us a call), plain "
+          f"{plain_ms:.4f} ms, gathers {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({bound_ms / ms:.3f} of it)")
     return {"name": "extract_patches", "route": "cuda", "source": "rtvm_tpu_torch/csrc/patches.cu",
             "replaces": "rtvm_tpu/ops/pallas_patches.py:145", "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
-            "library_ms": library_ms}
+            "library_ms": library_ms, "device_ms": dev_ms}
 
 
 def run_mosaic(torch, dev, frames: np.ndarray):
@@ -275,7 +361,7 @@ def phase_window(torch, dev, frames: np.ndarray, path: np.ndarray, card: str) ->
     import rtvm_tpu_torch.mosaic.stitcher as stitcher_mod
     import rtvm_tpu_torch.ops.features.sift as sift_mod
     from rtvm_tpu_torch import kernels
-    from rtvm_tpu_torch.ops.pallas_patches import extract_patches_plain
+    from rtvm_tpu_torch.ops.pallas_patches import extract_patches_octaves_plain
     from rtvm_tpu_torch.ops.pallas_warp import warp_plain
 
     t0 = time.time()
@@ -283,10 +369,9 @@ def phase_window(torch, dev, frames: np.ndarray, path: np.ndarray, card: str) ->
     m, auxs, secs = run_mosaic(torch, dev, frames)
     counts = dict(kernels.launches)
     n = N_WINDOWS * WINDOW
-    # one warp launch per window; one patch launch per octave per window,
-    # plus one per octave for the first frame's features
-    octaves = m.config.features.sift_octaves
-    want = {"warp": N_WINDOWS, "patches": octaves * (N_WINDOWS + 1)}
+    # one warp launch per window; one patch launch per window for all its
+    # octaves, plus one for the first frame's features
+    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1}
     check(counts == want, f"launch counts {counts}, expected {want}")
 
     blended = torch.cat([a.blended for a in auxs]).cpu().numpy()
@@ -311,15 +396,15 @@ def phase_window(torch, dev, frames: np.ndarray, path: np.ndarray, card: str) ->
     fps = (N_WINDOWS - 1) * WINDOW / sum(secs[1:])
 
     # the same run with the plain versions in place of both kernels
-    saved = stitcher_mod.warp_batch, sift_mod.extract_patches
+    saved = stitcher_mod.warp_batch, sift_mod.extract_patches_octaves
     stitcher_mod.warp_batch = warp_plain
-    sift_mod.extract_patches = extract_patches_plain
+    sift_mod.extract_patches_octaves = extract_patches_octaves_plain
     try:
         kernels.reset_launches()
         mp, auxs_p, secs_p = run_mosaic(torch, dev, frames)
         check(sum(kernels.launches.values()) == 0, "the plain run launched a kernel")
     finally:
-        stitcher_mod.warp_batch, sift_mod.extract_patches = saved
+        stitcher_mod.warp_batch, sift_mod.extract_patches_octaves = saved
     mse = float(((canvas_k - mp.state.canvas) ** 2).mean())
     psnr = math.inf if mse == 0 else 10 * math.log10(255.0**2 / mse)
     check(psnr >= MIN_PSNR_DB, f"kernel vs plain canvas PSNR {psnr:.2f} dB < {MIN_PSNR_DB}")
@@ -329,7 +414,7 @@ def phase_window(torch, dev, frames: np.ndarray, path: np.ndarray, card: str) ->
           f"launches {counts}, kernel-vs-plain canvas PSNR {psnr:.2f} dB; "
           f"{fps:.2f} frames/s (plain path {fps_plain:.2f}) over windows 2-{N_WINDOWS}, "
           f"window s {[round(s, 4) for s in secs]} on {card}")
-    return counts
+    return counts, auxs[0].H_abs
 
 
 def main() -> int:
@@ -363,14 +448,21 @@ def main() -> int:
         t0 = time.time()
         path = kernels.build()
         kernels.library()
-        phase("build", t0, f"{path.name}")
+        regs = kernels.ptxas_summary(kernels.build_log())
+        phase("build", t0, f"{path.name}; " + ("; ".join(
+            f"{k}: {v['registers']} registers, {v['smem']} B static smem, {v['stack']} B stack, "
+            f"spills {v['spill_stores']}/{v['spill_loads']} B" for k, v in sorted(regs.items()))
+            or "no ptxas report in the build log"))
 
         frames, cam = make_clip(np.random.RandomState(SEED), 1 + N_WINDOWS * WINDOW, FRAME_H, FRAME_W)
         hc, wc = 2 * FRAME_H, int(1.2 * FRAME_W)
-        rows = [phase_warp(torch, dev, frames, hc, wc), phase_patches(torch, dev)]
-        counts = phase_window(torch, dev, frames, cam, card)
-        rows[0]["launches"] = counts["warp"]
-        rows[1]["launches"] = counts["patches"]
+        phase_warp(torch, dev, frames, hc, wc)
+        row_b = phase_patches(torch, dev, frames)
+        counts, H_abs = phase_window(torch, dev, frames, cam, card)
+        row_a = warp_real(torch, dev, frames[1 : 1 + WINDOW], H_abs, hc, wc)
+        row_a["launches"] = counts["warp"]
+        row_b["launches"] = counts["patches"]
+        rows = [row_a, row_b]
     except CheckFailed as e:
         say(f"FAIL: {e}")
         return 1

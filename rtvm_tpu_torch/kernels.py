@@ -7,7 +7,10 @@ ctypes. ``torch.utils.cpp_extension`` is not used: its builds include
 PyTorch's headers and take minutes, where this one takes seconds.
 
 Each C entry point returns ``cudaGetLastError()`` after its launch;
-``check`` turns a non-zero code into an exception. The wrappers that call
+``check`` turns a non-zero code into an exception. The build runs with
+``-Xptxas -v``; nvcc's stderr is kept beside the library (``.log``), and
+``ptxas_summary`` reads each kernel's registers, shared memory and spills
+from it. The wrappers that call
 these entry points live beside their plain PyTorch versions
 (``ops/pallas_warp.py``, ``ops/pallas_patches.py``) and count their launches
 in ``launches``.
@@ -18,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,7 +33,7 @@ BUILD_DIR = PKG / "_build"
 SOURCES = ("warp.cu", "patches.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # Launch counts, one plain integer per kernel. A wrapper adds one exactly
@@ -72,7 +76,8 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the sources if this hash has not been built yet; returns the
-    library's path. Raises with nvcc's stderr when the build fails."""
+    library's path. nvcc's stderr goes to ``build_log()``'s file. Raises with
+    that stderr when the build fails."""
     out = library_path()
     if out.exists():
         return out
@@ -85,7 +90,41 @@ def build() -> Path:
         raise RuntimeError(
             f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
         )
+    out.with_suffix(".log").write_text(proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
+    return out
+
+
+def build_log() -> str:
+    """nvcc's stderr from the build of the current sources ('' if none)."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def ptxas_summary(log: str) -> dict:
+    """Per kernel (``__global__`` entry), from ``-Xptxas -v`` output:
+    registers, static shared memory, stack frame, spill store and load bytes."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": 0, "smem": 0, "stack": 0, "spill_stores": 0,
+                         "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["stack"], out[name]["spill_stores"], out[name]["spill_loads"] = (
+                int(m.group(1)), int(m.group(2)), int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name]["smem"] = int(m.group(1)) if m else 0
+            name = None
     return out
 
 
@@ -98,12 +137,19 @@ def library() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.rtvm_warp_bilinear.argtypes = [p, p, p, i, i, i, i, i, i, p]
             lib.rtvm_warp_bilinear.restype = i
-            lib.rtvm_warp_max_batch.argtypes = []
-            lib.rtvm_warp_max_batch.restype = i
-            lib.rtvm_extract_patches.argtypes = [p, p, p, p, i, i, i, i, p]
-            lib.rtvm_extract_patches.restype = i
+            lib.rtvm_extract_patches_octaves.argtypes = [i, p, i, p, p]
+            lib.rtvm_extract_patches_octaves.restype = i
             _lib = lib
         return _lib
+
+
+def stream_handle(device) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA device. The same
+    as ``torch.cuda.current_stream(device).cuda_stream`` without building a
+    Stream object (about 10 us a call on the card's host)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(code: int, name: str) -> None:

@@ -7,7 +7,8 @@ batched over frames: every function takes a leading batch axis B.
   band matrices (two float32 matrix products per octave).
 - DoG extrema: 3x3x3 max/min test, contrast threshold, exact blocked top-k,
   a point-wise Hessian edge test and 2D subpixel refinement.
-- Descriptor patches are cut by kernel B (``ops/pallas_patches.py``).
+- Descriptor patches of every octave are cut by kernel B in one call
+  (``ops/pallas_patches.py:extract_patches_octaves``).
 - Orientation (36-bin histogram) and 4x4x8 descriptors use the JAX package's
   static rotated spatial weight tables. The JAX version rounds some operands to
   bfloat16 before its matrix products; the same roundings are reproduced here
@@ -25,7 +26,7 @@ import torch
 
 from rtvm_tpu_torch.ops.features.fast import topk2d_blocked
 from rtvm_tpu_torch.ops.filters import band_matrix, gaussian_blur, gaussian_kernel1d, minmaxpool3x3
-from rtvm_tpu_torch.ops.pallas_patches import extract_patches
+from rtvm_tpu_torch.ops.pallas_patches import extract_patches_octaves
 
 PATCH = 32  # descriptor patch side (octave pixels)
 N_ROT_BINS = 16  # quantized keypoint-angle bins for the spatial weight tables
@@ -171,17 +172,17 @@ def _static_tensors(sigma_desc: float, device: torch.device):
             _bf(torch.from_numpy(spatial).to(device)))
 
 
-def _extract_level_patches(gauss_mid: torch.Tensor, xy: torch.Tensor, lvl: torch.Tensor):
-    """Cut [B, Q, P, P] integer-aligned patches from each keypoint's own level.
+def _level_patch_origins(gauss_mid: torch.Tensor, xy: torch.Tensor, lvl: torch.Tensor):
+    """Where each keypoint's [P, P] patch is cut from its own level.
     gauss_mid [B, S, H, W] holds levels 1..s; lvl in 1..s. The levels are
-    stacked vertically so the level becomes part of the row origin; kernel B
-    (or its plain version on the CPU) does the copy."""
+    stacked vertically so the level becomes part of the row origin. Returns
+    (stack [B, S*H, W], a view of gauss_mid, and ys, xs [B, Q] int32)."""
     b, s, h, w = gauss_mid.shape
     half = PATCH // 2
     ys = torch.clamp(xy[..., 1].to(torch.int32) - half, 0, h - PATCH - 2) + (lvl - 1) * h
     xs = torch.clamp(xy[..., 0].to(torch.int32) - half, 0, w - PATCH)
-    stack = gauss_mid.reshape(b, s * h, w).contiguous()
-    return extract_patches(stack, ys.to(torch.int32).contiguous(), xs.to(torch.int32).contiguous(), PATCH)
+    stack = gauss_mid.reshape(b, s * h, w)
+    return stack, ys.to(torch.int32).contiguous(), xs.to(torch.int32).contiguous()
 
 
 def _bf(x: torch.Tensor) -> torch.Tensor:
@@ -261,22 +262,22 @@ def _orientation_and_descriptors(patches: torch.Tensor, valid: torch.Tensor, sig
     return torch.cat(thetas), torch.cat(descs)
 
 
-def detect_and_describe(gray: torch.Tensor, cfg):
-    """gray [B, H, W] float (0..255) -> (xy [B, K, 2] full-res coords,
-    desc [B, K, 128] float32, valid [B, K]). cfg is a FeatureConfig."""
-    k = cfg.max_keypoints
+def detect_pyramid(gray: torch.Tensor, cfg):
+    """The detector half of detect_and_describe: gray [B, H, W] float
+    (0..255) -> (xy [B, K, 2] full-res coords, valid [B, K], and per octave
+    the patch inputs of kernel B: stacks [B, S*H_o, W_o], ys, xs [B, Q_o]
+    int32, and the descriptor's support radius sigma_desc)."""
     s = cfg.sift_scales
     octaves = cfg.sift_octaves
     sigma0 = cfg.sift_sigma
-    quotas = _octave_quotas(k, octaves, getattr(cfg, "sift_octave_decay", 4.0))
-    bsz = gray.shape[0]
+    quotas = _octave_quotas(cfg.max_keypoints, octaves, getattr(cfg, "sift_octave_decay", 4.0))
 
     img = gray / 255.0
     kfac = 2.0 ** (1.0 / s)
     sigmas = np.array([sigma0 * kfac**l for l in range(s + 3)], dtype=np.float32)
     deltas = np.sqrt(np.maximum(sigmas**2 - sigmas[0] ** 2, 0.0))
 
-    xs_all, patch_all, valid_all = [], [], []
+    xs_all, valid_all, stacks, ys_o, xs_o = [], [], [], [], []
     base = gaussian_blur(img, float(np.sqrt(max(sigma0**2 - 0.25, 0.01))))
     for o in range(octaves):
         gauss = _octave_levels(base, deltas)  # [B, s+3, H, W]
@@ -284,18 +285,26 @@ def detect_and_describe(gray: torch.Tensor, cfg):
         xy, lvl, _, valid = _detect_octave(
             dogs, quotas[o], cfg.sift_contrast_threshold, 10.0, cfg.border_margin
         )
-        patch_all.append(_extract_level_patches(gauss[:, 1 : s + 1], xy, lvl))
+        stack, ys, xs = _level_patch_origins(gauss[:, 1 : s + 1], xy, lvl)
+        stacks.append(stack)
+        ys_o.append(ys)
+        xs_o.append(xs)
         xs_all.append(xy * float(2**o))
         valid_all.append(valid)
         if o + 1 < octaves:
             base = gauss[:, s, ::2, ::2].contiguous()
+    sigma_desc = 6.0 * float(sigmas[s // 2 + 1])
+    return torch.cat(xs_all, dim=1), torch.cat(valid_all, dim=1), stacks, ys_o, xs_o, sigma_desc
 
-    xy = torch.cat(xs_all, dim=1)
-    patches = torch.cat(patch_all, dim=1)
-    valid = torch.cat(valid_all, dim=1)
+
+def detect_and_describe(gray: torch.Tensor, cfg):
+    """gray [B, H, W] float (0..255) -> (xy [B, K, 2] full-res coords,
+    desc [B, K, 128] float32, valid [B, K]). cfg is a FeatureConfig."""
+    bsz = gray.shape[0]
+    xy, valid, stacks, ys, xs, sigma_desc = detect_pyramid(gray, cfg)
+    patches = extract_patches_octaves(stacks, ys, xs, PATCH)  # [B, K, P, P], one launch
     _theta, desc = _orientation_and_descriptors(
-        patches.reshape(-1, PATCH, PATCH), valid.reshape(-1),
-        sigma_desc=6.0 * float(sigmas[s // 2 + 1]),
+        patches.reshape(-1, PATCH, PATCH), valid.reshape(-1), sigma_desc=sigma_desc,
     )
     xy = torch.where(valid[..., None], xy, torch.zeros_like(xy))
     return xy, desc.reshape(bsz, -1, 128), valid

@@ -1,10 +1,12 @@
 """Kernel A: the perspective warp that paints every frame.
 
 Counterpart of ``rtvm_tpu/ops/pallas_warp.py:warp_two_pass_pallas``. The CUDA
-kernel is ``csrc/warp.cu`` (a direct inverse-map bilinear warp; see its header
-for the design and bound); ``warp_plain`` is the same function as PyTorch
-indexing. ``warp_batch`` launches the kernel for a CUDA tensor and takes the
-plain version only for a CPU tensor.
+kernel is ``csrc/warp.cu`` (a direct inverse-map bilinear warp that skips the
+canvas tiles no sample point of the frame reaches; see its header for the
+design and bound); ``warp_plain`` is the same function as PyTorch indexing.
+``warp_batch`` launches the kernel for a CUDA tensor, one launch for the whole
+batch with G read from device memory, and takes the plain version only for a
+CPU tensor. ``tile_is_empty`` is the kernel's tile-skip rule in Python.
 
 Semantics: cv2.warpPerspective INTER_LINEAR with a zero border, as the Pallas
 kernel and the XLA two-pass warp compute it: a tap outside the frame counts as
@@ -17,9 +19,8 @@ blend.
 
 from __future__ import annotations
 
-import ctypes
+import math
 
-import numpy as np
 import torch
 
 from rtvm_tpu_torch import kernels
@@ -80,31 +81,57 @@ def _check(frames: torch.Tensor, G: torch.Tensor) -> None:
 
 def warp_batch(frames: torch.Tensor, G: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Warp B frames [B, C, Hf, Wf] by their inverse maps G [B, 3, 3] onto
-    [B, C, out_h, out_w]. CUDA tensors go through the kernel (one launch per
-    up to ``rtvm_warp_max_batch()`` frames); CPU tensors through warp_plain."""
+    [B, C, out_h, out_w]. CUDA tensors go through the kernel (one launch, G
+    stays on the device); CPU tensors through warp_plain."""
     _check(frames, G)
     if frames.device.type == "cpu":
         return warp_plain(frames, G, out_h, out_w)
     if frames.device.type != "cuda":
         raise ValueError(f"warp_batch: no kernel for device {frames.device}")
-    lib = kernels.library()
     b, c, hf, wf = frames.shape
     out = torch.empty((b, c, out_h, out_w), dtype=torch.float32, device=frames.device)
     if b == 0:
         return out
-    # G travels by value in the launch's parameters: one small copy to the host.
-    g_host = np.ascontiguousarray(G.detach().reshape(b, 9).cpu().numpy(), dtype=np.float32)
-    stream = ctypes.c_void_p(torch.cuda.current_stream(frames.device).cuda_stream)
-    step = lib.rtvm_warp_max_batch()
-    plane_in, plane_out = c * hf * wf * 4, c * out_h * out_w * 4
-    for s in range(0, b, step):
-        n = min(step, b - s)
-        code = lib.rtvm_warp_bilinear(
-            ctypes.c_void_p(frames.data_ptr() + s * plane_in),
-            ctypes.c_void_p(out.data_ptr() + s * plane_out),
-            g_host[s : s + n].ctypes.data_as(ctypes.c_void_p),
-            n, c, hf, wf, out_h, out_w, stream,
-        )
-        kernels.check(code, "rtvm_warp_bilinear")
-        kernels.launches["warp"] += 1
+    g = G.reshape(b, 9).contiguous()
+    code = kernels.library().rtvm_warp_bilinear(
+        frames.data_ptr(), g.data_ptr(), out.data_ptr(), b, c, hf, wf, out_h, out_w,
+        kernels.stream_handle(frames.device),
+    )
+    kernels.check(code, "rtvm_warp_bilinear")
+    kernels.launches["warp"] += 1
     return out
+
+
+TILE_W, TILE_H = 128, 8  # the kernel's canvas tile (RTVM_TILE_W, RTVM_TILE_H)
+_EPS32 = 2.0**-23  # twice float32's unit roundoff
+
+
+def tile_is_empty(g, xa: int, ya: int, xb: int, yb: int, hf: int, wf: int) -> bool:
+    """The kernel's tile-skip rule (csrc/warp.cu:tile_is_empty). g: the 9
+    entries of one G, row-major. True when every canvas pixel of [xa, xb] x
+    [ya, yb] (inclusive) samples outside (-1, wf) x (-1, hf) in warp_plain's
+    float32 arithmetic: the denominator is clearly positive at the four
+    corners (so on the whole tile, where it is affine), and the corners'
+    convex hull, which holds every sample point of the tile, lies beyond one
+    edge of the region by more than twice float32's rounding of a point."""
+    g = [float(v) for v in g]
+    corners = [(float(x), float(y)) for y in (ya, yb) for x in (xa, xb)]
+    dd = [g[6] * x + g[7] * y + g[8] for x, y in corners]
+    nx = [g[0] * x + g[1] * y + g[2] for x, y in corners]
+    ny = [g[3] * x + g[4] * y + g[5] for x, y in corners]
+    dmin = min(dd)
+    mden = max(abs(g[6]) * x + abs(g[7]) * y + abs(g[8]) for x, y in corners)
+    mx = max(abs(g[0]) * x + abs(g[1]) * y + abs(g[2]) for x, y in corners)
+    my = max(abs(g[3]) * x + abs(g[4]) * y + abs(g[5]) for x, y in corners)
+    if not (dmin > 1e-8) or not (3.0 * _EPS32 * mden <= 1e-3 * dmin):
+        return False
+    if not (mden < 1e30 and mx < 1e30 and my < 1e30):  # no float32 overflow on the tile
+        return False
+    rel = 3.0 * _EPS32 * mden / dmin + 4.0 * _EPS32
+    tx, ty = 2.0 * mx / dmin * rel, 2.0 * my / dmin * rel
+    if not (math.isfinite(tx) and math.isfinite(ty)):
+        return False
+    return (all(n <= (-1.0 - tx) * d for n, d in zip(nx, dd))
+            or all(n >= (wf + tx) * d for n, d in zip(nx, dd))
+            or all(n <= (-1.0 - ty) * d for n, d in zip(ny, dd))
+            or all(n >= (hf + ty) * d for n, d in zip(ny, dd)))

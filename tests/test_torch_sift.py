@@ -13,7 +13,9 @@ from rtvm_tpu.ops.features import sift as JSF
 from rtvm_tpu.ops.pallas_patches import extract_patches_pallas
 from rtvm_tpu_torch.config import FeatureConfig as TFeatureConfig
 from rtvm_tpu_torch.ops.features import sift as TSF
-from rtvm_tpu_torch.ops.pallas_patches import extract_patches, extract_patches_plain
+from rtvm_tpu_torch.ops.pallas_patches import (MAX_OCTAVES, extract_patches, extract_patches_octaves,
+                                               extract_patches_octaves_plain, extract_patches_plain,
+                                               tma_constraints)
 
 torch.set_num_threads(1)  # tier 1 runs several test workers at once
 
@@ -64,7 +66,8 @@ def _pallas_case():
 def test_patch_plain_version_is_byte_identical_to_jax_extractors():
     g, xy, lvl = _pallas_case()
     s, h, w = g.shape
-    out = TSF._extract_level_patches(_t(g)[None], _t(xy)[None], _t(lvl)[None])[0].numpy()
+    stack, ys_t, xs_t = TSF._level_patch_origins(_t(g)[None], _t(xy)[None], _t(lvl)[None])
+    out = extract_patches_octaves([stack], [ys_t], [xs_t])[0].numpy()
     ref_xla = np.asarray(JSF._extract_level_patches(jnp.asarray(g), jnp.asarray(xy), jnp.asarray(lvl)))
     np.testing.assert_array_equal(out, ref_xla)
     half = JSF.PATCH // 2
@@ -90,6 +93,81 @@ def test_patch_wrapper_uses_plain_on_cpu_and_checks_its_inputs():
         extract_patches(stack, ys.long(), xs)
     with pytest.raises(ValueError):
         extract_patches(stack[0], ys, xs)
+
+
+def _octave_case(h, w, b=2, s=3, quotas=(21, 9, 5, 3), seed=11):
+    """Per octave of an h x w frame: the levels 1..s stacked as a strided view
+    of a [B, s+3, H_o, W_o] level tensor (as detect_pyramid passes them) and
+    random in-range origins [B, Q_o]."""
+    rng = np.random.RandomState(seed)
+    stacks, ys, xs = [], [], []
+    for o, q in enumerate(quotas):
+        ho, wo = h >> o, w >> o
+        levels = _t(rng.rand(b, s + 3, ho, wo).astype(np.float32))
+        stacks.append(levels[:, 1 : s + 1].reshape(b, s * ho, wo))
+        ys.append(_t(rng.randint(0, s * ho - 32 + 1, (b, q)).astype(np.int32)))
+        xs.append(_t(rng.randint(0, wo - 32 + 1, (b, q)).astype(np.int32)))
+    return stacks, ys, xs
+
+
+@pytest.mark.parametrize("h,w", [(96, 256), (120, 320)])
+def test_patch_octaves_plain_is_the_per_octave_cut_and_the_pallas_kernel(h, w):
+    stacks, ys, xs = _octave_case(h, w)
+    assert stacks[0].stride(0) != stacks[0].shape[1] * stacks[0].shape[2]  # a strided view
+    out = extract_patches_octaves_plain(stacks, ys, xs).numpy()
+    assert out.shape == (2, sum(y.shape[1] for y in ys), 32, 32)
+    cat = torch.cat([extract_patches_plain(s, y, x) for s, y, x in zip(stacks, ys, xs)], 1).numpy()
+    np.testing.assert_array_equal(out, cat)
+    assert torch.equal(extract_patches_octaves(stacks, ys, xs), torch.from_numpy(out))  # CPU route
+    col = 0
+    for s, y, x in zip(stacks, ys, xs):
+        q = y.shape[1]
+        for bi in range(s.shape[0]):
+            ref = np.asarray(extract_patches_pallas(
+                jnp.asarray(s[bi].numpy()), jnp.asarray(y[bi].numpy()), jnp.asarray(x[bi].numpy()),
+                32, interpret=True))
+            np.testing.assert_array_equal(out[bi, col : col + q], ref)
+        col += q
+
+
+def test_tma_constraints_on_cpu_shapes():
+    stacks, ys, xs = _octave_case(96, 256)
+    tma_constraints(stacks, ys, xs)  # the main path's layout passes
+    tma_constraints([s.contiguous() for s in stacks], ys, xs)
+    one = [s[:1] for s in stacks], [y[:1] for y in ys], [x[:1] for x in xs]
+    tma_constraints(*one)
+    narrow = torch.zeros(2, 96, 90)  # 90 floats a row: not a multiple of 16 bytes
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tma_constraints([narrow], ys[:1], xs[:1])
+    with pytest.raises(ValueError, match="at most"):
+        tma_constraints(stacks * 3, ys * 3, xs * 3)
+    assert len(stacks * 3) > MAX_OCTAVES
+    with pytest.raises(ValueError, match="rows must be contiguous"):
+        tma_constraints([stacks[0][:, :, ::2]], ys[:1], xs[:1])
+    base = torch.zeros(2 * 96 * 64 + 1)
+    with pytest.raises(ValueError, match="aligned"):
+        tma_constraints([base[1:].reshape(2, 96, 64)], ys[:1], xs[:1])
+    odd = torch.zeros(2, 96 * 64 + 2)[:, : 96 * 64].reshape(2, 96, 64)  # batch stride 6146 floats
+    with pytest.raises(ValueError, match="batch stride"):
+        tma_constraints([odd], ys[:1], xs[:1])
+    with pytest.raises(ValueError, match="origins must be contiguous"):
+        tma_constraints(stacks[:1], [ys[0].t().contiguous().t()], xs[:1])
+    with pytest.raises(ValueError, match="32x32"):
+        tma_constraints(stacks, ys, xs, patch=16)
+
+
+def test_detect_pyramid_feeds_one_patch_call_in_the_kernel_layout():
+    gray = _t(np.random.RandomState(4).rand(2, 128, 256).astype(np.float32) * 255)
+    cfg = TFeatureConfig()
+    xy, valid, stacks, ys, xs, _ = TSF.detect_pyramid(gray, cfg)
+    assert len(stacks) == cfg.sift_octaves and xy.shape[1] == valid.shape[1] == cfg.max_keypoints
+    assert [y.shape[1] for y in ys] == TSF._octave_quotas(cfg.max_keypoints, cfg.sift_octaves, 4.0)
+    tma_constraints(stacks, ys, xs)  # widths 256..32: the CUDA route takes these views
+    patches = extract_patches_octaves(stacks, ys, xs)
+    np.testing.assert_array_equal(
+        patches.numpy(),
+        torch.cat([extract_patches_plain(s.contiguous(), y, x) for s, y, x in zip(stacks, ys, xs)],
+                  1).numpy())
 
 
 def test_orientation_and_descriptors_match_jax_on_the_same_patches():

@@ -12,7 +12,8 @@ import torch
 from rtvm_tpu.ops import warp as JW
 from rtvm_tpu.ops.pallas_warp import warp_two_pass_pallas
 from rtvm_tpu_torch.ops import warp as TW
-from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch, warp_plain
+from rtvm_tpu_torch.ops.pallas_warp import (TILE_H, TILE_W, inverse_maps, tile_is_empty, warp_batch,
+                                            warp_plain)
 
 torch.set_num_threads(1)  # tier 1 runs several test workers at once
 
@@ -124,6 +125,73 @@ def test_warp_batch_on_cpu_is_the_plain_version_and_checks_inputs(small_image):
         warp_batch(_t(stack), G[:2], HC, WC)
     with pytest.raises(ValueError):
         warp_batch(_t(stack).transpose(2, 3), G, HC, WC)
+
+
+# ------------------------------------------------------------------ tile skip
+
+SKIP_HF, SKIP_WF, SKIP_HC, SKIP_WC = 60, 100, 120, 202  # canvas width not a multiple of 4 or 128
+HULL_MARGIN_PX = 1e-3  # the hull must clear the region by this: float32 rounding of a sample point
+
+
+def _random_h(kind, rng):
+    t = [[1, 0, rng.uniform(-60, 160)], [0, 1, rng.uniform(-40, 100)], [0, 0, 1]]
+    if kind == "near_identity":
+        a = np.eye(3) + np.diag([1, 1, 0]) @ rng.normal(0, 2e-3, (3, 3))
+    elif kind == "scaled":
+        a = np.diag([rng.uniform(0.5, 1.6)] * 2 + [1.0])
+    elif kind == "rotated":
+        th = rng.uniform(-np.pi, np.pi)
+        a = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1]])
+    else:  # perspective, strong enough that some tiles see a non-positive denominator
+        a = np.eye(3)
+        a[2, :2] = rng.uniform(-1.2e-2, 1.2e-2, 2)
+    return (np.array(t) @ a).astype(np.float32)
+
+
+def _hull_misses(g, xa, ya, xb, yb, margin):
+    """Positive denominators at the tile's corners, and the convex hull of the
+    mapped corners separated from (-1, wf) x (-1, hf), grown by `margin`, by
+    an axis of the region or an edge of the hull (separating axes)."""
+    g = np.asarray(g, np.float64).reshape(3, 3)
+    c = np.array([[xa, ya, 1], [xb, ya, 1], [xb, yb, 1], [xa, yb, 1]], np.float64) @ g.T
+    if not np.all(c[:, 2] > 0):
+        return False
+    quad = c[:, :2] / c[:, 2:]
+    rect = np.array([[-1 - margin, -1 - margin], [SKIP_WF + margin, -1 - margin],
+                     [SKIP_WF + margin, SKIP_HF + margin], [-1 - margin, SKIP_HF + margin]])
+    edges = np.roll(quad, -1, 0) - quad
+    axes = [np.array([1.0, 0.0]), np.array([0.0, 1.0])] + [np.array([-e[1], e[0]]) for e in edges]
+    for ax in axes:
+        pq, pr = quad @ ax, rect @ ax
+        if pq.max() <= pr.min() or pr.max() <= pq.min():
+            return True
+    return False
+
+
+@pytest.mark.parametrize("kind", ["near_identity", "scaled", "rotated", "perspective"])
+def test_tile_skip_rule_is_sound(kind):
+    rng = np.random.RandomState(["near_identity", "scaled", "rotated", "perspective"].index(kind))
+    frame = _t(rng.rand(1, 1, SKIP_HF, SKIP_WF).astype(np.float32) + 0.5)  # > 0 wherever sampled
+    skipped = missed = tiles = 0
+    for _ in range(12):
+        G = inverse_maps(_t(_random_h(kind, rng))[None])
+        out = warp_plain(frame, G, SKIP_HC, SKIP_WC)[0, 0].numpy()
+        g = G[0].reshape(9).numpy()
+        for ya in range(0, SKIP_HC, TILE_H):
+            for xa in range(0, SKIP_WC, TILE_W):
+                xb, yb = min(xa + TILE_W, SKIP_WC) - 1, min(ya + TILE_H, SKIP_HC) - 1
+                tile = out[ya : yb + 1, xa : xb + 1]
+                tiles += 1
+                if _hull_misses(g, xa, ya, xb, yb, HULL_MARGIN_PX):
+                    missed += 1
+                    assert not np.any(tile), (kind, xa, ya)
+                if tile_is_empty(g, xa, ya, xb, yb, SKIP_HF, SKIP_WF):
+                    skipped += 1
+                    assert not np.any(tile), (kind, xa, ya)
+                    assert _hull_misses(g, xa, ya, xb, yb, 0.0), (kind, xa, ya)
+    # the rule takes the tiles beyond one edge of the region: most that miss
+    assert 0 < skipped <= missed < tiles
+    assert skipped >= 0.6 * missed, (skipped, missed)
 
 
 # ------------------------------------------------------------------ paint chain

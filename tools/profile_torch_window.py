@@ -8,11 +8,12 @@ rtvm_tpu_torch's VideMosaic, warms up on one window, times the next windows
 without the profiler, restores the state and traces the same windows with
 torch.profiler. Prints, per window: the untraced wall time and frames/s, the
 kernels' busy time and the device's idle share of the untraced wall, the
-number of kernel launches, the four stage spans of the step (window.features,
-window.match_ransac, window.chain, window.paint) with their host time and the
-time and number of the kernels they launched, and the kernels that take the
-most device time. The last line is one JSON object with the same numbers;
---trace writes the Chrome trace.
+number of kernel launches, the copies between host and card by direction and
+the concatenation kernels (torch.cat), the four stage spans of the step
+(window.features, window.match_ransac, window.chain, window.paint) with their
+host time and the time and number of the kernels they launched, and the
+kernels that take the most device time. The last line is one JSON object with
+the same numbers; --trace writes the Chrome trace.
 """
 
 from __future__ import annotations
@@ -95,11 +96,15 @@ def main() -> int:
     top_rows = [{"name": nm[:100], "device_ms": t / 1e3 / args.windows, "count": c / args.windows}
                 for nm, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]]
     launches = len(kernels) / args.windows
+    copies = {kind: sum(1 for k in kernels if k.name.startswith(f"Memcpy {kind}")) / args.windows
+              for kind in ("HtoD", "DtoH", "DtoD")}
+    cats = sum(1 for k in kernels if "CatArray" in k.name) / args.windows
 
     print(f"card: {card}")
     print(f"per 16-frame window: wall {wall_ms:.3f} ms ({cs.WINDOW * 1e3 / wall_ms:.2f} frames/s) "
           f"untraced, {traced_ms:.3f} ms traced; kernels busy {busy_ms:.3f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f} of the untraced wall; {launches:.0f} kernel launches")
+    print(f"  copies per window {copies}; concatenation kernels per window {cats:.0f}")
     for k, v in spans.items():
         print(f"  {k:20s} host {v['host_ms']:8.3f} ms  kernels {v['kernel_ms']:7.3f} ms  "
               f"launches {v['launches']:6.0f}")
@@ -107,7 +112,8 @@ def main() -> int:
         print(f"  {r['device_ms']:8.3f} ms  x{r['count']:6.1f}  {r['name']}")
     print(json.dumps({"card": card, "wall_ms": wall_ms, "traced_wall_ms": traced_ms,
                       "kernel_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
-                      "launches": launches, "spans": spans, "top": top_rows}))
+                      "launches": launches, "copies": copies, "cat_launches": cats,
+                      "spans": spans, "top": top_rows}))
     return 0
 
 
