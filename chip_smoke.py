@@ -11,11 +11,15 @@ Phases, each printed with its result and seconds on its own line:
   4. kernel B (the SIFT patch copy) against its plain version on random
      origins at every octave shape, then timed on the origins the SIFT stages
      produce for one 16-frame window of the clip;
-  5. the SIFT window step: 3 windows of 16 frames of a seeded synthetic world
-     through VideMosaic.process_window, checked against the known camera path
-     and against the same run with the plain versions swapped in;
-  6. kernel A against its plain version on the maps of a window of that run,
-     and timed through warp_batch on them;
+  5. the SIFT window step (BASELINE config 2): 3 windows of 16 frames of a
+     seeded synthetic world through VideMosaic.process_window, checked against
+     the known camera path and against the same run with the plain versions
+     swapped in; windows 2-3 run with CUDA's sync debug mode set to "error",
+     so a device sync inside the window step fails the phase;
+  6. the ORB window step (BASELINE config 1), the same clip and checks, with
+     kernel A as its only kernel;
+  7. kernel A against its plain version on the maps of a window of the SIFT
+     run, and timed through warp_batch on them;
 then one JSON line of per-kernel numbers, the elapsed time, and as the last
 line {"ok": true, "device": {...}}. Any failed check exits non-zero. Without
 a CUDA device it prints no result and exits non-zero.
@@ -36,7 +40,7 @@ import numpy as np
 T_START = time.time()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
-FRAME_H, FRAME_W = 360, 640  # BASELINE config 2 frames
+FRAME_H, FRAME_W = 360, 640  # BASELINE configs 1 and 2 frames
 WINDOW = 16
 N_WINDOWS = 3
 MIN_ACCEPTED = 47
@@ -339,25 +343,39 @@ def phase_patches(torch, dev, frames_u8: np.ndarray) -> dict:
             "library_ms": library_ms, "device_ms": dev_ms}
 
 
-def run_mosaic(torch, dev, frames: np.ndarray):
+def run_mosaic(torch, dev, frames: np.ndarray, detector: str, no_sync: bool = False):
     """VideMosaic on frames[0], then N_WINDOWS windows of WINDOW frames.
-    Returns (mosaic, list of WindowAux, seconds per window)."""
+    With no_sync, windows 2.. run under CUDA's sync debug mode "error" (the
+    frames are uploaded before it is set), so a device sync inside the window
+    step raises. Returns (mosaic, list of WindowAux, seconds per window)."""
     from rtvm_tpu_torch.mosaic.stitcher import VideMosaic
 
-    m = VideMosaic(frames[0], detector_type="sift", seed=SEED, device=dev)
+    m = VideMosaic(frames[0], detector_type=detector, seed=SEED, device=dev)
     auxs, secs = [], []
     for wi in range(N_WINDOWS):
-        win = frames[1 + wi * WINDOW : 1 + (wi + 1) * WINDOW]
         torch.cuda.synchronize()
         t = time.time()
-        auxs.append(m.process_window(win))
+        win = torch.as_tensor(frames[1 + wi * WINDOW : 1 + (wi + 1) * WINDOW]).to(dev)
+        guard = no_sync and wi > 0  # window 1 builds the cached constants
+        if guard:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            auxs.append(m.process_window(win))
+        except RuntimeError as e:
+            if guard:
+                raise CheckFailed(f"{detector} window {wi + 1}: {e}") from e
+            raise
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         secs.append(time.time() - t)
     return m, auxs, secs
 
 
-def phase_window(torch, dev, frames: np.ndarray, path: np.ndarray, card: str) -> dict:
-    """The SIFT window step on the kernel path, then on the plain path."""
+def phase_window(torch, dev, frames: np.ndarray, path: np.ndarray, card: str,
+                 detector: str, want: dict) -> tuple:
+    """One detector's window step on the kernel path, then on the plain path.
+    Returns (launch counts of the kernel path, window 1's H_abs)."""
     import rtvm_tpu_torch.mosaic.stitcher as stitcher_mod
     import rtvm_tpu_torch.ops.features.sift as sift_mod
     from rtvm_tpu_torch import kernels
@@ -365,22 +383,20 @@ def phase_window(torch, dev, frames: np.ndarray, path: np.ndarray, card: str) ->
     from rtvm_tpu_torch.ops.pallas_warp import warp_plain
 
     t0 = time.time()
+    name = "window" if detector == "sift" else f"window_{detector}"
     kernels.reset_launches()
-    m, auxs, secs = run_mosaic(torch, dev, frames)
+    m, auxs, secs = run_mosaic(torch, dev, frames, detector, no_sync=True)
     counts = dict(kernels.launches)
     n = N_WINDOWS * WINDOW
-    # one warp launch per window; one patch launch per window for all its
-    # octaves, plus one for the first frame's features
-    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1}
-    check(counts == want, f"launch counts {counts}, expected {want}")
+    check(counts == want, f"{name}: launch counts {counts}, expected {want}")
 
     blended = torch.cat([a.blended for a in auxs]).cpu().numpy()
     ok = torch.cat([a.ok for a in auxs]).cpu().numpy()
     accepted = int((blended & ok).sum())
-    check(accepted >= MIN_ACCEPTED, f"only {accepted} of {n} frames accepted")
+    check(accepted >= MIN_ACCEPTED, f"{name}: only {accepted} of {n} frames accepted")
 
     H_abs = torch.cat([a.H_abs for a in auxs]).cpu().numpy().astype(np.float64)
-    check(np.isfinite(H_abs).all(), "non-finite H_abs")
+    check(np.isfinite(H_abs).all(), f"{name}: non-finite H_abs")
     hf, wf = FRAME_H, FRAME_W
     corners = np.array([[0, 0, 1], [wf, 0, 1], [wf, hf, 1], [0, hf, 1]], np.float64).T
     got = np.einsum("bij,jk->bik", H_abs, corners)
@@ -388,11 +404,13 @@ def phase_window(torch, dev, frames: np.ndarray, path: np.ndarray, card: str) ->
     shift = path[1 : n + 1] - path[0] + np.array([m.h_offset, m.w_offset])
     want_c = corners[:2].T[None] + shift[:, None, :]
     traj_err = float(np.abs(got - want_c)[blended].max())
-    check(traj_err <= TRAJ_TOL_PX, f"corner trajectory off by {traj_err:.3f} px > {TRAJ_TOL_PX}")
+    check(traj_err <= TRAJ_TOL_PX,
+          f"{name}: corner trajectory off by {traj_err:.3f} px > {TRAJ_TOL_PX}")
 
     canvas_k = m.state.canvas
-    check(bool(torch.isfinite(canvas_k).all()), "non-finite canvas")
-    check(tuple(canvas_k.shape) == (3, 2 * hf, int(1.2 * wf)), f"canvas shape {tuple(canvas_k.shape)}")
+    check(bool(torch.isfinite(canvas_k).all()), f"{name}: non-finite canvas")
+    check(tuple(canvas_k.shape) == (3, 2 * hf, int(1.2 * wf)),
+          f"{name}: canvas shape {tuple(canvas_k.shape)}")
     fps = (N_WINDOWS - 1) * WINDOW / sum(secs[1:])
 
     # the same run with the plain versions in place of both kernels
@@ -401,17 +419,19 @@ def phase_window(torch, dev, frames: np.ndarray, path: np.ndarray, card: str) ->
     sift_mod.extract_patches_octaves = extract_patches_octaves_plain
     try:
         kernels.reset_launches()
-        mp, auxs_p, secs_p = run_mosaic(torch, dev, frames)
-        check(sum(kernels.launches.values()) == 0, "the plain run launched a kernel")
+        mp, auxs_p, secs_p = run_mosaic(torch, dev, frames, detector)
+        check(sum(kernels.launches.values()) == 0, f"{name}: the plain run launched a kernel")
     finally:
         stitcher_mod.warp_batch, sift_mod.extract_patches_octaves = saved
     mse = float(((canvas_k - mp.state.canvas) ** 2).mean())
     psnr = math.inf if mse == 0 else 10 * math.log10(255.0**2 / mse)
-    check(psnr >= MIN_PSNR_DB, f"kernel vs plain canvas PSNR {psnr:.2f} dB < {MIN_PSNR_DB}")
+    check(psnr >= MIN_PSNR_DB, f"{name}: kernel vs plain canvas PSNR {psnr:.2f} dB < {MIN_PSNR_DB}")
     fps_plain = (N_WINDOWS - 1) * WINDOW / sum(secs_p[1:])
-    phase("window", t0,
-          f"{accepted}/{n} frames accepted, corner trajectory max err {traj_err:.4f} px, "
-          f"launches {counts}, kernel-vs-plain canvas PSNR {psnr:.2f} dB; "
+    canvases = "identical" if mse == 0 else f"PSNR {psnr:.2f} dB"
+    phase(name, t0,
+          f"{detector}: {accepted}/{n} frames accepted, corner trajectory max err {traj_err:.4f} px, "
+          f"launches {counts}, no device sync in windows 2-{N_WINDOWS}, kernel-vs-plain canvas "
+          f"{canvases}; "
           f"{fps:.2f} frames/s (plain path {fps_plain:.2f}) over windows 2-{N_WINDOWS}, "
           f"window s {[round(s, 4) for s in secs]} on {card}")
     return counts, auxs[0].H_abs
@@ -458,10 +478,17 @@ def main() -> int:
         hc, wc = 2 * FRAME_H, int(1.2 * FRAME_W)
         phase_warp(torch, dev, frames, hc, wc)
         row_b = phase_patches(torch, dev, frames)
-        counts, H_abs = phase_window(torch, dev, frames, cam, card)
+        # SIFT: one warp launch per window; one patch launch per window for
+        # all its octaves, plus one for the first frame's features
+        sift_counts, H_abs = phase_window(torch, dev, frames, cam, card, "sift",
+                                          {"warp": N_WINDOWS, "patches": N_WINDOWS + 1})
+        # ORB: one warp launch per window; its patches are uint8 cuts (no kernel)
+        orb_counts, _ = phase_window(torch, dev, frames, cam, card, "orb",
+                                     {"warp": N_WINDOWS, "patches": 0})
         row_a = warp_real(torch, dev, frames[1 : 1 + WINDOW], H_abs, hc, wc)
-        row_a["launches"] = counts["warp"]
-        row_b["launches"] = counts["patches"]
+        for row, key in ((row_a, "warp"), (row_b, "patches")):
+            row["launches"] = sift_counts[key] + orb_counts[key]
+            row["launches_by_path"] = {"window": sift_counts[key], "window_orb": orb_counts[key]}
         rows = [row_a, row_b]
     except CheckFailed as e:
         say(f"FAIL: {e}")

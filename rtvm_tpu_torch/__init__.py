@@ -1,10 +1,10 @@
 """rtvm_tpu_torch — the PyTorch/CUDA port of rtvm_tpu, one slice at a time.
 
-This slice covers the SIFT window step of the streaming mosaic stitcher
-(``mosaic.stitcher.VideMosaic``). The two kernels the JAX package wrote in
-Pallas for the TPU are hand-written CUDA here (``csrc/warp.cu``,
-``csrc/patches.cu``), built with ``nvcc`` at first use and loaded with ctypes
-(``kernels.py``). Everything else is plain PyTorch.
+The port covers the window step of the streaming mosaic stitcher
+(``mosaic.stitcher.VideMosaic``) with either detector, SIFT or ORB. The two
+kernels the JAX package wrote in Pallas for the TPU are hand-written CUDA here
+(``csrc/warp.cu``, ``csrc/patches.cu``), built with ``nvcc`` at first use and
+loaded with ctypes (``kernels.py``). Everything else is plain PyTorch.
 
 The package imports neither ``jax`` nor anything of ``rtvm_tpu``. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``; without a card and

@@ -16,6 +16,7 @@ the sample indices (or the uniform draws they come from, see
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -265,15 +266,20 @@ def smooth_homography_step(hbuf: torch.Tensor, hcount: torch.Tensor, H: torch.Te
     size = hbuf.shape[0]
     hbuf = torch.cat([hbuf[1:], H[None]], dim=0)
     hcount = torch.clamp(hcount + 1, max=size)
-    w = weight_table[hcount - 1]  # [S]
+    # index on the device: a 0-dim index tensor would be read with .item()
+    w = weight_table.index_select(0, (hcount - 1).reshape(1))[0]  # [S]
     h_avg = torch.einsum("s,sij->ij", w, hbuf)
     return hbuf, hcount, torch.where(hcount < 2, H, h_avg)
 
 
+@functools.lru_cache(maxsize=32)
+def _frame_corners(w: int, h: int, device: torch.device) -> torch.Tensor:
+    """[4, 2] float32 corners (0,0), (w,0), (w,h), (0,h), built once per
+    device (read only)."""
+    return torch.tensor([[0.0, 0.0], [float(w), 0.0], [float(w), float(h)], [0.0, float(h)]],
+                        dtype=torch.float32, device=device)
+
+
 def transform_corners(w: int, h: int, H: torch.Tensor) -> torch.Tensor:
     """Warped frame corners (0,0), (w,0), (w,h), (0,h) under H [..., 3, 3]."""
-    corners = torch.tensor(
-        [[0.0, 0.0], [float(w), 0.0], [float(w), float(h)], [0.0, float(h)]],
-        dtype=torch.float32, device=H.device,
-    )
-    return project(H, corners)
+    return project(H, _frame_corners(w, h, H.device))

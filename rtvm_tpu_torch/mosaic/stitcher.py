@@ -1,9 +1,10 @@
-"""The streaming mosaic stitcher, SIFT path (counterpart of
-``rtvm_tpu/mosaic/stitcher.py``).
+"""The streaming mosaic stitcher (counterpart of ``rtvm_tpu/mosaic/stitcher.py``).
 
 One window step processes B consecutive frames:
-  1. gray + SIFT detection/description for all B frames at once;
-  2. L2 ratio matching + RANSAC for the B consecutive pairs at once;
+  1. gray + detection/description for all B frames at once: FAST-9 and
+     rBRIEF for ORB, DoG SIFT for SIFT;
+  2. matching (Hamming cross-check for ORB, L2 ratio for SIFT) + RANSAC for
+     the B consecutive pairs at once;
   3. a short sequential pass over the 3x3 chain: validate -> smooth ->
      compose H_abs = H_old @ H_rel;
   4. paint: the warp (kernel A, one launch for the window) and every weight
@@ -37,12 +38,15 @@ from rtvm_tpu_torch.geometry import homography as geo
 from rtvm_tpu_torch.ops import color
 from rtvm_tpu_torch.ops import match as match_ops
 from rtvm_tpu_torch.ops import warp as warp_ops
+from rtvm_tpu_torch.ops.features import fast as fast_ops
+from rtvm_tpu_torch.ops.features import orb as orb_ops
 from rtvm_tpu_torch.ops.features import sift as sift_ops
 from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch
 
-ORB_NOT_PORTED = (
-    "detector_type='orb' is not ported yet: the ORB path (FAST-9, rBRIEF, "
-    "Hamming matching) is the next slice of the PyTorch port"
+DEBUG_ARTIFACTS_NOT_PORTED = (
+    "the debug artifacts that output_dir with show_intermediate or visualize asks for "
+    "(mosaic_progress.jpg, matches.jpg) are not ported yet (ROADMAP.md, Queue 1 item 3); "
+    "pass output_dir=None, or show_intermediate=False and visualize=False"
 )
 
 
@@ -53,7 +57,8 @@ class MosaicState(NamedTuple):
     union_coarse: torch.Tensor  # [Hc/4, Wc/4] bool mosaic coverage at 4-px cells
     H_old: torch.Tensor  # [3, 3] float32 frame -> canvas
     kp: torch.Tensor  # [K, 2] float32 previous-frame keypoints
-    desc: torch.Tensor  # [K, 128] float32
+    desc: torch.Tensor  # [K, 8] int32 packed words (orb; uint32 in a checkpoint) /
+    # [K, 128] float32 (sift)
     kp_valid: torch.Tensor  # [K] bool
     hbuf: torch.Tensor  # [S, 3, 3] float32 relative-homography history
     hcount: torch.Tensor  # int64 history fill count
@@ -80,12 +85,16 @@ def state_from_numpy(snap: dict, device) -> MosaicState:
     def t(name, dtype):
         return torch.as_tensor(np.array(snap[name]), dtype=dtype).to(dev)
 
+    desc = np.array(snap["desc"])
+    # ORB's packed uint32 words keep their bit pattern as int32
+    desc = desc.view(np.int32) if desc.dtype in (np.uint32, np.int32) else desc.astype(np.float32)
+
     return MosaicState(
         canvas=t("canvas", torch.float32),
         union_coarse=t("union_coarse", torch.bool),
         H_old=t("H_old", torch.float32),
         kp=t("kp", torch.float32),
-        desc=t("desc", torch.float32),
+        desc=torch.from_numpy(desc).to(dev),
         kp_valid=t("kp_valid", torch.bool),
         hbuf=t("hbuf", torch.float32),
         hcount=t("hcount", torch.int64),
@@ -94,17 +103,31 @@ def state_from_numpy(snap: dict, device) -> MosaicState:
 
 
 def _check_config(cfg: MosaicConfig) -> None:
-    if cfg.features.detector_type == "orb":
-        raise NotImplementedError(ORB_NOT_PORTED)
-    if cfg.features.detector_type != "sift":
+    if cfg.features.detector_type not in ("orb", "sift"):
         raise ValueError(f"unknown detector_type: {cfg.features.detector_type}")
     if cfg.auto_grow:
         raise NotImplementedError("auto_grow is not ported yet (a later slice of the PyTorch port)")
 
 
 def _extract_features(grays: torch.Tensor, cfg: MosaicConfig):
-    """grays [B, H, W] -> (kp [B,K,2], desc [B,K,128], valid [B,K])."""
-    return sift_ops.detect_and_describe(grays, cfg.features)
+    """grays [B, H, W] -> (kp [B,K,2], desc, valid [B,K]); desc is [B,K,8]
+    int32 words for ORB, [B,K,128] float32 for SIFT."""
+    f = cfg.features
+    if f.detector_type == "orb":
+        kps = fast_ops.detect_fast(grays, f.max_keypoints, f.fast_threshold, f.border_margin,
+                                   f.fast_arc_length)
+        desc = orb_ops.describe_orb_batch(
+            grays, kps.xy, kps.valid, n_bits=f.brief_bits, pattern_radius=f.brief_patch_radius,
+            blur_sigma=f.brief_blur_sigma, orientation_radius=f.orientation_radius,
+        )
+        return kps.xy, desc.bits, kps.valid
+    return sift_ops.detect_and_describe(grays, f)
+
+
+def _match_pairs(desc_q, valid_q, desc_t, valid_t, cfg: MosaicConfig) -> match_ops.Matches:
+    if cfg.features.detector_type == "orb":
+        return match_ops.match_hamming_crosscheck(desc_q, valid_q, desc_t, valid_t)
+    return match_ops.match_l2_ratio(desc_q, valid_q, desc_t, valid_t, cfg.match.ratio)
 
 
 def pair_uniforms(seed: int, first_frame: int, b: int, cfg: MosaicConfig,
@@ -146,7 +169,7 @@ def make_step_body(frame_shape: Tuple[int, int, int], cfg: MosaicConfig):
             kp_prev = torch.cat([state.kp[None], kps[:-1]], dim=0)
             desc_prev = torch.cat([state.desc[None], descs[:-1]], dim=0)
             valid_prev = torch.cat([state.kp_valid[None], valids[:-1]], dim=0)
-            m = match_ops.match_l2_ratio(descs, valids, desc_prev, valid_prev, cfg.match.ratio)
+            m = _match_pairs(descs, valids, desc_prev, valid_prev, cfg)
             src, dst, mvalid = match_ops.gather_correspondences(kps, kp_prev, m)
             if uniforms is None:
                 uniforms = pair_uniforms(seed, int(state.frame_idx), b, cfg, dev)
@@ -256,10 +279,14 @@ def make_clip_step(frame_shape: Tuple[int, int, int], cfg: MosaicConfig):
 
 
 class VideMosaic:
-    """Counterpart of the JAX package's VideMosaic for the SIFT path.
+    """Counterpart of the JAX package's VideMosaic, with its positional
+    arguments in its order and ``device`` last.
 
-    Frames are BGR uint8 arrays of a fixed shape (set by the first frame).
-    Runs on ``device`` (``cuda`` unless the caller asks for another)."""
+    Frames are BGR uint8 arrays of a fixed shape (set by the first frame), or
+    uint8 tensors already on the device. Runs on ``device`` (``cuda`` unless
+    the caller asks for another). The debug artifacts that the JAX class
+    writes when ``output_dir`` is set and ``show_intermediate`` or
+    ``visualize`` is on are not ported: that combination raises."""
 
     def __init__(
         self,
@@ -267,10 +294,15 @@ class VideMosaic:
         output_height_times: float = 2.0,
         output_width_times: float = 1.2,
         detector_type: str = "sift",
+        show_intermediate: bool = True,
+        output_dir: Optional[str] = None,
+        visualize: bool = False,
         config: Optional[MosaicConfig] = None,
         seed: int = 0,
         device=None,
     ):
+        if output_dir and (visualize or show_intermediate):
+            raise NotImplementedError(DEBUG_ARTIFACTS_NOT_PORTED)
         if config is None:
             config = MosaicConfig(
                 output_height_times=output_height_times,
@@ -283,6 +315,9 @@ class VideMosaic:
         _check_config(config)
         self.config = config
         self.detector_type = config.features.detector_type
+        self.show_intermediate = show_intermediate
+        self.output_dir = output_dir
+        self.visualize = visualize
         self.device = resolve_device(device)
         self.seed = int(seed)
 
@@ -309,6 +344,8 @@ class VideMosaic:
         self.state = self._init_state(first_image)
 
     def _frames(self, frames) -> torch.Tensor:
+        if isinstance(frames, torch.Tensor):
+            return frames.to(device=self.device, dtype=torch.uint8)
         return torch.as_tensor(np.asarray(frames), dtype=torch.uint8).to(self.device)
 
     def _init_state(self, first_image: np.ndarray) -> MosaicState:
@@ -354,7 +391,7 @@ class VideMosaic:
 
     def process_frame(self, frame_cur, frame_count: int = 0) -> bool:
         """Single-frame path. Returns True if the frame's homography was accepted."""
-        aux = self.process_window(np.asarray(frame_cur)[None])
+        aux = self.process_window(self._frames(frame_cur)[None])
         return bool(aux.ok[0])
 
     @property
@@ -363,19 +400,28 @@ class VideMosaic:
         return self.state.canvas.permute(1, 2, 0).cpu().numpy()
 
     @property
+    def output_img_u8(self) -> np.ndarray:
+        """Canvas clipped to [0, 255] as a [Hc, Wc, 3] uint8 array."""
+        return np.clip(self.output_img, 0, 255).astype(np.uint8)
+
+    @property
     def H_old(self) -> np.ndarray:
         return self.state.H_old.cpu().numpy()
 
     def checkpoint(self) -> dict:
         """Snapshot of the full state as numpy arrays, with the JAX package's
-        keys and dtypes (so either package can restore it)."""
+        keys and dtypes (so either package can restore it): ORB's words go
+        out as uint32."""
         s = self.state
+        desc = s.desc.cpu().numpy()
+        if desc.dtype == np.int32:
+            desc = desc.view(np.uint32)
         return {
             "canvas": s.canvas.cpu().numpy(),
             "union_coarse": s.union_coarse.cpu().numpy(),
             "H_old": s.H_old.cpu().numpy(),
             "kp": s.kp.cpu().numpy(),
-            "desc": s.desc.cpu().numpy(),
+            "desc": desc,
             "kp_valid": s.kp_valid.cpu().numpy(),
             "hbuf": s.hbuf.cpu().numpy(),
             "hcount": np.int32(s.hcount.item()),

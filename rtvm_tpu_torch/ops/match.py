@@ -1,6 +1,6 @@
-"""Descriptor matching for the SIFT path (counterpart of ``match_l2_ratio`` and
-``gather_correspondences`` in ``rtvm_tpu/ops/match.py``; the Hamming matcher
-of the ORB path belongs to a later slice).
+"""Descriptor matching (counterpart of ``rtvm_tpu/ops/match.py``): Hamming
+distance with a mutual cross-check for ORB's packed words, L2 with Lowe's
+ratio test for SIFT's float descriptors.
 
 Everything is fixed size [..., K] with validity masks and batches over
 leading axes.
@@ -12,6 +12,7 @@ from typing import NamedTuple
 
 import torch
 
+_BIG = 1 << 30
 _BIG_F = 1e30
 
 
@@ -22,6 +23,38 @@ class Matches(NamedTuple):
     train_idx: torch.Tensor  # [..., K] int64
     valid: torch.Tensor  # [..., K] bool
     distance: torch.Tensor  # [..., K] float32
+
+
+def _unpack_pm1(packed: torch.Tensor) -> torch.Tensor:
+    """[..., K, W] int32 words -> [..., K, 32*W] float32 in {-1, +1}. The
+    shift is arithmetic, and ``& 1`` still gives bit s of the word."""
+    shifts = torch.arange(32, dtype=torch.int32, device=packed.device)
+    bits = (packed[..., None] >> shifts) & 1
+    return (2 * bits - 1).to(torch.float32).reshape(*packed.shape[:-1], -1)
+
+
+def hamming_distance_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., Ka, W], b [..., Kb, W] int32 words -> [..., Ka, Kb] int32
+    Hamming distances, (n_bits - a.b) / 2 over the {-1, +1} unpacked bits.
+    The product is exact in float32: its terms are +-1 and its sums integers
+    below 2^24 (TF32 would keep them exact too, since +-1 needs no mantissa)."""
+    n_bits = a.shape[-1] * 32
+    dot = torch.matmul(_unpack_pm1(a), _unpack_pm1(b).transpose(-1, -2))
+    return torch.div(n_bits - dot.to(torch.int32), 2, rounding_mode="floor")
+
+
+def match_hamming_crosscheck(desc_q, valid_q, desc_t, valid_t) -> Matches:
+    """Mutual-nearest-neighbour Hamming matching of [..., K, W] int32 words
+    (BFMatcher crossCheck semantics); argmin ties go to the first index."""
+    d = hamming_distance_matrix(desc_q, desc_t)
+    both = valid_q[..., :, None] & valid_t[..., None, :]
+    d = torch.where(both, d, torch.full_like(d, _BIG))
+    best_t = torch.argmin(d, dim=-1)  # [..., Kq]
+    best_q = torch.argmin(d, dim=-2)  # [..., Kt]
+    dist = torch.gather(d, -1, best_t[..., None])[..., 0]
+    ar = torch.arange(d.shape[-2], device=d.device)
+    mutual = (torch.gather(best_q, -1, best_t) == ar) & (dist < _BIG)
+    return Matches(train_idx=best_t, valid=mutual, distance=dist.to(torch.float32))
 
 
 def match_l2_ratio(desc_q, valid_q, desc_t, valid_t, ratio: float = 0.7) -> Matches:

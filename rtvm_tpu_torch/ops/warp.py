@@ -16,6 +16,8 @@ the JAX package's exact out-of-regime warp, kept as a reference for tests.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -114,9 +116,24 @@ def _seg_dist(px, py, x0, y0, x1, y1, valid):
     return torch.where(valid, d, torch.full_like(d, float("inf")))
 
 
-def _where(c, a, b):
-    return torch.where(c, torch.as_tensor(a, dtype=torch.float32, device=c.device),
-                       torch.as_tensor(b, dtype=torch.float32, device=c.device))
+@functools.lru_cache(maxsize=64)
+def _const(value: float, device: torch.device) -> torch.Tensor:
+    """A 0-dim float32 constant on `device`, built once (read only)."""
+    return torch.tensor(value, dtype=torch.float32, device=device)
+
+
+def _where(c, a: float, b: float):
+    return torch.where(c, _const(a, c.device), _const(b, c.device))
+
+
+@functools.lru_cache(maxsize=32)
+def _support_corners(hf: int, wf: int, device: torch.device) -> torch.Tensor:
+    """[4, 3] homogeneous corners of the bilinear support rect (-1..wf,
+    -1..hf), built once per device (read only)."""
+    return torch.tensor(
+        [[-1.0, -1.0, 1.0], [float(wf), -1.0, 1.0], [float(wf), float(hf), 1.0], [-1.0, float(hf), 1.0]],
+        dtype=torch.float32, device=device,
+    )
 
 
 def frame_weight_params(H: torch.Tensor, hf: int, wf: int, hc: int, wc: int) -> tuple:
@@ -129,11 +146,7 @@ def frame_weight_params(H: torch.Tensor, hf: int, wf: int, hc: int, wc: int) -> 
     the segments are each edge's chord clipped to the canvas and the four
     canvas sides clipped to the edge's outside half-plane (see the JAX
     package's ``analytic_frame_weight`` for the derivation)."""
-    dev = H.device
-    corners = torch.tensor(
-        [[-1.0, -1.0, 1.0], [float(wf), -1.0, 1.0], [float(wf), float(hf), 1.0], [-1.0, float(hf), 1.0]],
-        dtype=torch.float32, device=dev,
-    )
+    corners = _support_corners(hf, wf, H.device)
     ch = torch.matmul(H, corners.T).transpose(-1, -2)  # [B, 4, 3]
     cq = ch[..., :2] / ch[..., 2:3]  # [B, 4, 2] canvas xy
     cen = torch.mean(cq, dim=-2)

@@ -1,6 +1,7 @@
-"""The PyTorch port's SIFT window step: against the JAX stitcher from one state
-carried across (CPU), and the port's own versions of tests/test_stitcher.py's
-window, clip and checkpoint tests."""
+"""The PyTorch port's window step, SIFT and ORB: against the JAX stitcher from
+one state carried across (CPU), the port's own versions of
+tests/test_stitcher.py's window, clip and checkpoint tests, checkpoints
+between the packages, the constructor's arguments and the entry point."""
 
 import cv2
 import jax
@@ -13,6 +14,8 @@ from rtvm_tpu.mosaic.stitcher import VideMosaic as JaxMosaic
 from rtvm_tpu_torch.config import FeatureConfig as TFeatureConfig
 from rtvm_tpu_torch.config import MosaicConfig as TMosaicConfig
 from rtvm_tpu_torch.mosaic.stitcher import VideMosaic, state_from_numpy
+from rtvm_tpu_torch.ops import warp as warp_ops
+from torch.utils._python_dispatch import TorchDispatchMode
 
 torch.set_num_threads(1)  # tier 1 runs several test workers at once
 
@@ -168,6 +171,238 @@ def test_checkpoint_restore_roundtrip(scene):
     assert np.abs(m.output_img - after).max() < 1e-3
 
 
-def test_orb_names_the_next_slice(scene):
-    with pytest.raises(NotImplementedError, match="next slice"):
-        VideMosaic(_frames(scene, 1)[0], detector_type="orb", device="cpu")
+
+# ------------------------------------------------------------------ the ORB path
+
+
+def _orb_frames(scene, n, dx=6, dy=-4):
+    """tests/test_stitcher.py's _synthetic_frames: a camera panning right and up."""
+    h, w = 160, 256
+    return [scene[300 + i * dy : 300 + i * dy + h, 100 + i * dx : 100 + i * dx + w] for i in range(n)]
+
+
+def _jax_orb_config():
+    return MosaicConfig(window_size=4, features=FeatureConfig(detector_type="orb", max_keypoints=256, sift_octaves=3))
+
+
+def _orb_config():
+    return TMosaicConfig(window_size=4, features=TFeatureConfig(detector_type="orb", max_keypoints=256, sift_octaves=3))
+
+
+MIN_IDENTICAL_DESC = 0.95  # of the carried ORB words; 1.0 measured on these frames
+# ORB keypoints lie on the pixel grid, so the pairs' homographies are integer
+# translations to ~1e-5 px, and a frame's last column and row sample the
+# source at w-1 (h-1) plus or minus a rounding. The JAX XLA two-pass warp
+# leaves such a sample black, the port (cv2's INTER_LINEAR with a zero border)
+# paints it, and the blend weights spread that over EDGE_BAND pixels around
+# every frame edge. Measured whole-canvas PSNR: 32.68 dB (window 1), 27.30 dB
+# (window 2, which also crosses the canvas edge).
+MIN_ORB_CANVAS_PSNR_DB = 25.0
+
+
+def _away_from_frame_edges(H_abs, hf, wf, hc, wc, band=EDGE_BAND):
+    """bool [Hc, Wc]: pixels farther than `band` from every edge of every
+    frame's warped rectangle (and from the canvas's right edge)."""
+    ys, xs = np.mgrid[0:hc, 0:wc]
+    keep = xs < wc - band
+    for H in np.asarray(H_abs, np.float64):
+        c = H @ np.array([[0, wf - 1, wf - 1, 0], [0, 0, hf - 1, hf - 1], [1, 1, 1, 1]], np.float64)
+        x0, x1 = (c[0] / c[2]).min(), (c[0] / c[2]).max()
+        y0, y1 = (c[1] / c[2]).min(), (c[1] / c[2]).max()
+        in_x = (xs > x0 - band) & (xs < x1 + band)
+        in_y = (ys > y0 - band) & (ys < y1 + band)
+        near = ((np.abs(xs - x0) <= band) | (np.abs(xs - x1) <= band)) & in_y
+        near |= ((np.abs(ys - y0) <= band) | (np.abs(ys - y1) <= band)) & in_x
+        keep &= ~near
+    return keep
+
+
+@pytest.fixture(scope="module")
+def orb_runs(scene):
+    """Two 4-frame ORB windows through each package, the port restored from
+    the JAX package's state after frame 0 and fed its RANSAC draws."""
+    frames = _orb_frames(scene, 9)
+    jm = JaxMosaic(frames[0], detector_type="orb", config=_jax_orb_config())
+    tm = VideMosaic(frames[0], detector_type="orb", config=_orb_config(), device="cpu")
+    js0 = jm.checkpoint()
+    # the first frame's features, each package on its own
+    first = (tm.state.kp.numpy(), tm.state.desc.numpy(), js0["kp"], js0["desc"])
+    tm.restore(js0)
+    out = []
+    for w in (frames[1:5], frames[5:9]):
+        u = _jax_uniforms(jm, 4)
+        ja = jm.process_window(np.stack(w))
+        ta = tm.process_window(np.stack(w), uniforms=u)
+        out.append((ja, ta, jm.output_img, tm.output_img))
+    return jm, tm, frames, first, out
+
+
+def test_orb_window_step_matches_jax_from_a_carried_state(orb_runs):
+    jm, tm, _, (kp0, desc0, jkp0, jdesc0), windows = orb_runs
+    np.testing.assert_array_equal(kp0, jkp0)
+    assert (desc0 == jdesc0.view(np.int32)).all(-1).mean() >= MIN_IDENTICAL_DESC
+    for ja, ta, _, _ in windows:
+        np.testing.assert_array_equal(ta.ok.numpy(), np.asarray(ja.ok))
+        np.testing.assert_array_equal(ta.blended.numpy(), np.asarray(ja.blended))
+        np.testing.assert_array_equal(ta.two_pass.numpy(), np.asarray(ja.two_pass))
+        np.testing.assert_array_equal(ta.num_matches.numpy(), np.asarray(ja.num_matches))
+        assert np.abs(ta.H_abs.numpy() - np.asarray(ja.H_abs)).max() <= H_ABS_TOL
+        assert np.asarray(ja.ok).all()
+    for ja, _, jc, tc in windows:
+        assert _psnr(tc, jc) >= MIN_ORB_CANVAS_PSNR_DB
+        keep = _away_from_frame_edges(ja.H_abs, 160, 256, jc.shape[0], jc.shape[1])
+        assert keep.mean() > 0.25
+        assert _psnr(tc[keep], jc[keep]) >= MIN_CANVAS_PSNR_DB
+    js, ts = jm.checkpoint(), tm.checkpoint()
+    assert ts["desc"].dtype == js["desc"].dtype == np.uint32
+    assert (ts["desc"] == js["desc"]).all(-1).mean() >= MIN_IDENTICAL_DESC
+    np.testing.assert_array_equal(ts["kp"], js["kp"])
+    assert int(ts["frame_idx"]) == int(js["frame_idx"]) == 9
+    assert np.abs(ts["H_old"] - js["H_old"]).max() <= H_ABS_TOL
+
+
+def test_orb_process_frame_accepts_and_updates_state(scene):
+    frames = _orb_frames(scene, 3)
+    m = VideMosaic(frames[0], detector_type="orb", config=_orb_config(), device="cpu")
+    assert int(m.state.frame_idx) == 1
+    assert m.process_frame(frames[1], 1)
+    assert int(m.state.frame_idx) == 2
+    H = m.H_old
+    assert abs(H[0, 2] - (m.h_offset + 6)) < 2.0
+    assert abs(H[1, 2] - (m.w_offset - 4)) < 2.0
+
+
+def test_orb_window_equivalent_to_single_frames(scene):
+    frames = _orb_frames(scene, 5)
+    m1 = VideMosaic(frames[0], detector_type="orb", config=_orb_config(), device="cpu")
+    for i, f in enumerate(frames[1:]):
+        m1.process_frame(f, i + 1)
+    m2 = VideMosaic(frames[0], detector_type="orb", config=_orb_config(), device="cpu")
+    m2.process_window(np.stack(frames[1:]))
+    assert np.abs(m1.H_old - m2.H_old).max() < 0.05
+    assert np.abs(m1.output_img - m2.output_img).mean() < 0.5
+
+
+def test_orb_mosaic_grows_and_matches_scene(scene):
+    frames = _orb_frames(scene, 8)
+    m = VideMosaic(frames[0], detector_type="orb", config=_orb_config(), device="cpu")
+    aux = m.process_window(np.stack(frames[1:]))
+    assert aux.ok.all()
+    out = m.output_img_u8
+    covered = int(m.state.union_coarse.sum()) * warp_ops.CELL_PX**2
+    assert covered > 1.15 * 160 * 256
+    seed = out[m.w_offset : m.w_offset + 160, m.h_offset : m.h_offset + 256]
+    d = np.abs(seed.astype(np.float32) - frames[0].astype(np.float32))
+    assert d[40:-40, 60:-60].mean() < 12.0
+
+
+def test_orb_checkpoint_restore_roundtrip(scene):
+    frames = _orb_frames(scene, 4)
+    m = VideMosaic(frames[0], detector_type="orb", config=_orb_config(), device="cpu")
+    m.process_window(np.stack(frames[1:3]))
+    snap = m.checkpoint()
+    m.process_frame(frames[3], 3)
+    after = m.output_img.copy()
+    m.restore(snap)
+    m.process_frame(frames[3], 3)
+    assert np.abs(m.output_img - after).max() < 1e-3
+
+
+def test_orb_process_clip_matches_sequential_windows(scene):
+    frames = _orb_frames(scene, 9)
+    m1 = VideMosaic(frames[0], detector_type="orb", config=_orb_config(), device="cpu")
+    m1.process_window(np.stack(frames[1:5]))
+    m1.process_window(np.stack(frames[5:9]))
+    m2 = VideMosaic(frames[0], detector_type="orb", config=_orb_config(), device="cpu")
+    aux = m2.process_clip(np.stack([np.stack(frames[1:5]), np.stack(frames[5:9])]))
+    assert tuple(aux.ok.shape) == (2, 4)
+    assert aux.ok.all()
+    assert np.abs(m1.H_old - m2.H_old).max() < 0.05
+    assert np.abs(m1.output_img - m2.output_img).mean() < 0.5
+    assert int(m2.state.frame_idx) == 9
+
+
+def test_jax_orb_checkpoint_round_trips_through_the_port(orb_runs):
+    jm, _, frames, _, _ = orb_runs
+    js = jm.checkpoint()
+    tm = VideMosaic(frames[0], detector_type="orb", config=_orb_config(), device="cpu")
+    tm.restore(js)
+    assert tm.state.desc.dtype == torch.int32 and tuple(tm.state.desc.shape) == (256, 8)
+    np.testing.assert_array_equal(tm.state.desc.numpy(), js["desc"].view(np.int32))
+    ts = tm.checkpoint()
+    assert set(ts) == set(js)
+    for k in js:
+        np.testing.assert_array_equal(ts[k], js[k], err_msg=k)
+    assert ts["desc"].dtype == np.uint32
+    # and back into the JAX package, word for word
+    jm2 = JaxMosaic(frames[0], detector_type="orb", config=_jax_orb_config())
+    jm2.restore(ts)
+    np.testing.assert_array_equal(np.asarray(jm2.state.desc), js["desc"])
+    assert np.asarray(jm2.state.desc).dtype == np.uint32
+
+
+# ------------------------------------------------------------------ the entry points
+
+
+def test_jax_style_positional_arguments_land_in_place(scene):
+    f0 = _orb_frames(scene, 1)[0]
+    cfg = _orb_config()
+    # (first_image, output_height_times, output_width_times, detector_type,
+    #  show_intermediate, output_dir, visualize, config, seed), then device
+    m = VideMosaic(f0, 2.0, 1.2, "orb", False, None, False, cfg, 7, "cpu")
+    assert m.config == cfg and m.seed == 7 and m.device == torch.device("cpu")
+    assert m.show_intermediate is False and m.output_dir is None and m.visualize is False
+    assert VideMosaic(f0, detector_type="orb", config=cfg, device="cpu").show_intermediate is True
+
+
+@pytest.mark.parametrize("show_intermediate,visualize", [(True, False), (False, True)])
+def test_debug_artifacts_are_refused_not_ignored(scene, tmp_path, show_intermediate, visualize):
+    f0 = _orb_frames(scene, 1)[0]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        VideMosaic(f0, detector_type="orb", config=_orb_config(), show_intermediate=show_intermediate,
+                   visualize=visualize, output_dir=str(tmp_path), device="cpu")
+    # no output_dir, or nothing asked of it: no artifacts to write, no error
+    VideMosaic(f0, detector_type="orb", config=_orb_config(), show_intermediate=show_intermediate,
+               visualize=visualize, device="cpu")
+    VideMosaic(f0, detector_type="orb", config=_orb_config(), show_intermediate=False,
+               visualize=False, output_dir=str(tmp_path), device="cpu")
+
+
+class _ScalarReads(TorchDispatchMode):
+    """Counts reads of a tensor's value into Python (on a card, each one
+    waits for the device)."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("detector", ["sift", "orb"])
+def test_window_step_reads_one_host_scalar(scene, detector):
+    """The only value a window step reads into Python is the host tensor
+    state.frame_idx, which seeds the RANSAC draws."""
+    frames = _orb_frames(scene, 5)
+    cfg = _orb_config() if detector == "orb" else _config()
+    m = VideMosaic(frames[0], detector_type=detector, config=cfg, device="cpu")
+    window = torch.from_numpy(np.stack(frames[1:]))
+    m.process_window(window[:2])  # build the cached constants
+    assert m.state.frame_idx.device.type == "cpu"
+    with _ScalarReads() as reads:
+        aux = m.process_window(window[2:])
+    assert aux.ok.all()
+    assert reads.n == 1
+
+
+def test_port_entry_runs_on_cpu():
+    from rtvm_tpu_torch.entry import entry
+
+    fn, args = entry(device="cpu")
+    state, aux = fn(*args)
+    assert tuple(aux.H_abs.shape) == (2, 3, 3) and bool(torch.isfinite(aux.H_abs).all())
+    assert tuple(state.desc.shape) == (128, 8) and state.desc.dtype == torch.int32
+    assert int(state.frame_idx) == 3 and tuple(state.canvas.shape) == (3, 256, 307)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's SIFT window step goes, on one CUDA card.
+"""Where the time of the PyTorch port's window step goes, on one CUDA card.
 
-    python3 tools/profile_torch_window.py [--windows 2] [--trace trace.json]
+    python3 tools/profile_torch_window.py [--detector sift|orb] [--windows 2] [--trace trace.json]
 
 Runs chip_smoke.py's synthetic clip (360x640 frames, 16-frame windows) through
 rtvm_tpu_torch's VideMosaic, warms up on one window, times the next windows
@@ -33,6 +33,7 @@ sys.path.insert(0, ROOT)
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--detector", choices=("sift", "orb"), default="sift")
     ap.add_argument("--windows", type=int, default=2, help="windows traced after the warm-up")
     ap.add_argument("--trace", default=None, help="write the Chrome trace to this path")
     args = ap.parse_args()
@@ -50,7 +51,7 @@ def main() -> int:
                           capture_output=True, text=True, timeout=60).stdout.strip()
     n = 1 + (1 + args.windows) * cs.WINDOW
     frames, _ = cs.make_clip(np.random.RandomState(cs.SEED), n, cs.FRAME_H, cs.FRAME_W)
-    m = VideMosaic(frames[0], detector_type="sift", seed=cs.SEED, device="cuda")
+    m = VideMosaic(frames[0], detector_type=args.detector, seed=cs.SEED, device="cuda")
     wins = [frames[1 + i * cs.WINDOW : 1 + (i + 1) * cs.WINDOW] for i in range(1 + args.windows)]
     m.process_window(wins[0])  # warm-up: allocator, cuBLAS handles, kernel library
     torch.cuda.synchronize()
@@ -100,7 +101,7 @@ def main() -> int:
               for kind in ("HtoD", "DtoH", "DtoD")}
     cats = sum(1 for k in kernels if "CatArray" in k.name) / args.windows
 
-    print(f"card: {card}")
+    print(f"card: {card}; detector {args.detector}")
     print(f"per 16-frame window: wall {wall_ms:.3f} ms ({cs.WINDOW * 1e3 / wall_ms:.2f} frames/s) "
           f"untraced, {traced_ms:.3f} ms traced; kernels busy {busy_ms:.3f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.3f} of the untraced wall; {launches:.0f} kernel launches")
@@ -110,7 +111,7 @@ def main() -> int:
               f"launches {v['launches']:6.0f}")
     for r in top_rows:
         print(f"  {r['device_ms']:8.3f} ms  x{r['count']:6.1f}  {r['name']}")
-    print(json.dumps({"card": card, "wall_ms": wall_ms, "traced_wall_ms": traced_ms,
+    print(json.dumps({"card": card, "detector": args.detector, "wall_ms": wall_ms, "traced_wall_ms": traced_ms,
                       "kernel_busy_ms": busy_ms, "idle_share": 1 - busy_ms / wall_ms,
                       "launches": launches, "copies": copies, "cat_launches": cats,
                       "spans": spans, "top": top_rows}))
