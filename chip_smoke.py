@@ -18,7 +18,15 @@ Phases, each printed with its result and seconds on its own line:
      so a device sync inside the window step fails the phase;
   6. the ORB window step (BASELINE config 1), the same clip and checks, with
      kernel A as its only kernel;
-  7. kernel A against its plain version on the maps of a window of the SIFT
+  7. the detection of BASELINE config 3, for YOLOv8n and then YOLO11n: the
+     bundled checkpoint (weights/*_aerial.npz) read by the port's loader,
+     then VideMosaic.process_clip over the same clip with det_fn =
+     ObjectDetector._infer_fn(640, 0.25, 0.45) (bfloat16, as the JAX
+     detector), whose stitch must equal phase 5's; its detections on 4
+     frames, and the head logits, held against the port's own float32 run
+     on the CPU, and a float32 run on the card held tighter; frames/s,
+     detection ms, launches, card-to-host reads and peak memory;
+  8. kernel A against its plain version on the maps of a window of the SIFT
      run, and timed through warp_batch on them;
 then one JSON line of per-kernel numbers, the elapsed time, and as the last
 line {"ok": true, "device": {...}}. Any failed check exits non-zero. Without
@@ -47,6 +55,25 @@ MIN_ACCEPTED = 47
 TRAJ_TOL_PX = 2.0
 MIN_PSNR_DB = 60.0
 SEED = 0
+# BASELINE config 3: per-frame YOLO on the stitched clip
+DETECT_MODELS = {  # model: (checkpoint, its leaf count, its value count)
+    "yolov8n": ("weights/yolov8n_aerial.npz", 297, 3022792),
+    "yolo11n": ("weights/yolo11n_aerial.npz", 417, 2606760),
+}
+DET_IMGSZ, DET_CONF, DET_IOU = 640, 0.25, 0.45
+DET_FRAMES = [0, 17, 31, 47]  # the clip's frames held against the CPU
+H_ABS_SAME = 1e-6
+# Bounds against the port's float32 run on the CPU, per dtype on the card:
+# (largest |d| of the head logits over their largest |value|, least share of
+# detections matched at IoU >= 0.9 with the same class, largest score gap of
+# a matched detection). Set from the first runs on an H100 (PERF.md, section 6),
+# YOLOv8n and YOLO11n on these 4 frames: bf16 logits 2.0e-2 and 2.4e-2,
+# 0.964-0.972 matched, score gaps up to 0.185; float32 logits 1.1e-6 and
+# 8.3e-7, all matched, gaps 3.9e-6. Many scores on this clip sit near 0.5,
+# where bf16 moves them most; the JAX package's own bf16 detector is no
+# closer to float32 on these frames
+# (tests/test_torch_detect.py::test_bfloat16_is_no_farther_from_float32_than_the_reference).
+DET_BOUNDS = {"bfloat16": (0.05, 0.90, 0.25), "float32": (1e-5, 0.99, 1e-4)}
 
 
 class CheckFailed(Exception):
@@ -434,7 +461,132 @@ def phase_window(torch, dev, frames: np.ndarray, path: np.ndarray, card: str,
           f"{canvases}; "
           f"{fps:.2f} frames/s (plain path {fps_plain:.2f}) over windows 2-{N_WINDOWS}, "
           f"window s {[round(s, 4) for s in secs]} on {card}")
-    return counts, auxs[0].H_abs
+    return counts, auxs, m, fps
+
+
+def _card_copies_and_launches(torch, fn) -> tuple:
+    """(kernel launches, card-to-host copies) of one call of fn, from
+    torch.profiler."""
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == cuda]
+    dtoh = sum(1 for e in evs if e.name.startswith("Memcpy DtoH"))
+    kernels = sum(1 for e in evs if not e.name.startswith(("Memcpy", "Memset")))
+    return kernels, dtoh
+
+
+def phase_detect(torch, dev, frames: np.ndarray, card: str, model: str, window_run) -> dict:
+    """BASELINE config 3 for one model: the stitch of phase `window` with the
+    detection hoisted after it, over the whole clip. Returns the kernels'
+    launch counts of the main-path run."""
+    import os
+
+    from rtvm_tpu_torch import kernels
+    from rtvm_tpu_torch.detect.detector import ObjectDetector
+    from rtvm_tpu_torch.models.yolo.postprocess import Detections, match_detections
+    from rtvm_tpu_torch.mosaic.stitcher import VideMosaic
+    from rtvm_tpu_torch.utils.checkpoint import load_pytree_npz
+
+    t0 = time.time()
+    name = f"detect_{model}"
+    path, n_leaves, n_values = DETECT_MODELS[model]
+    check(os.path.exists(path), f"{name}: {path} is not in this checkout")
+    tree = load_pytree_npz(path)
+    got = (len(tree), sum(int(v.size) for v in tree.values()))
+    check(got == (n_leaves, n_values), f"{name}: {path} holds {got} leaves/values, expected "
+                                       f"{(n_leaves, n_values)}")
+    det = ObjectDetector(model, weights_path=path, load_world=False, device=dev)
+    check(det.weights_loaded and det.weights_source == path,
+          f"{name}: weights_loaded {det.weights_loaded}, source {det.weights_source}")
+    say(f"[{name}] {path}: {os.path.getsize(path)} bytes, {got[0]} leaves, {got[1]} values, "
+        f"classes {det.class_names}")
+
+    # the main path: stitch + detection over the clip, one process_clip call
+    n = N_WINDOWS * WINDOW
+    wins = torch.as_tensor(frames[1 : 1 + n]).reshape(N_WINDOWS, WINDOW, FRAME_H, FRAME_W, 3)
+    wins = wins.to(dev)
+    det_fn = det._infer_fn(DET_IMGSZ, DET_CONF, DET_IOU)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t = time.time()
+    m = VideMosaic(frames[0], detector_type="sift", seed=SEED, device=dev)
+    aux, dets = m.process_clip(wins, det_fn=det_fn)
+    torch.cuda.synchronize()
+    first_s = time.time() - t
+    counts = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1}
+    check(counts == want, f"{name}: launch counts {counts}, expected {want}")
+
+    _, w_auxs, w_m, w_fps = window_run
+    w_ok = torch.stack([a.blended & a.ok for a in w_auxs])
+    check(torch.equal(aux.blended & aux.ok, w_ok), f"{name}: accepted frames differ from `window`")
+    h_err = float((aux.H_abs - torch.stack([a.H_abs for a in w_auxs])).abs().max())
+    check(h_err <= H_ABS_SAME, f"{name}: H_abs differs from `window` by {h_err}")
+    check(torch.equal(m.state.canvas, w_m.state.canvas), f"{name}: canvas differs from `window`")
+    for f, v in dets._asdict().items():
+        check(tuple(v.shape[:3]) == (N_WINDOWS, WINDOW, 300), f"{name}: {f} {tuple(v.shape)}")
+    check(bool(torch.isfinite(dets.boxes[dets.valid]).all()), f"{name}: non-finite boxes")
+
+    # warm: the same call timed twice, and the detection alone
+    fps = []
+    for _ in range(2):
+        m2 = VideMosaic(frames[0], detector_type="sift", seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        t = time.time()
+        m2.process_clip(wins, det_fn=det_fn)
+        torch.cuda.synchronize()
+        fps.append(n / (time.time() - t))
+    flat = wins.reshape((n,) + wins.shape[2:])
+    det_ms = cuda_ms(torch, lambda: det_fn(flat), reps=5, warmup=1)
+    det_launches, det_reads = _card_copies_and_launches(torch, lambda: det_fn(flat))
+
+    # 4 frames against the port's float32 run on the CPU
+    pick = torch.tensor(DET_FRAMES)
+    four = frames[1 : 1 + n][DET_FRAMES]
+    ref = ObjectDetector(model, weights_path=path, load_world=False, device="cpu")
+    (rb, rc), _ = ref.head_logits(four, DET_IMGSZ, torch.float32)
+    ref_logits = torch.cat([t.flatten() for t in rb + rc])
+    scale = float(ref_logits.abs().max())
+    notes, failed = [], []
+    for dtype_name, dtype in (("bfloat16", torch.bfloat16), ("float32", torch.float32)):
+        rel_max, share_min, gap_max = DET_BOUNDS[dtype_name]
+        card_four = torch.as_tensor(four).to(dev)
+        (cb, cc), _ = det.head_logits(card_four, DET_IMGSZ, dtype)
+        rel = float((torch.cat([t.flatten() for t in cb + cc]).cpu() - ref_logits).abs().max())
+        rel /= scale
+        if rel > rel_max:
+            failed.append(f"{dtype_name}: logits off by {rel:.3e} of the largest > {rel_max}")
+        parts = [f"{dtype_name}: logits max |d| {rel:.3e} of max |logit| {scale:.2f}"]
+        for conf in (DET_CONF, 0.01):
+            want_d = ref._infer_fn(DET_IMGSZ, conf, DET_IOU, torch.float32)(four)
+            if dtype == torch.bfloat16 and conf == DET_CONF:  # the clip run's own detections
+                got_d = Detections(*(v.reshape((n,) + v.shape[2:])[pick.to(dev)] for v in dets))
+            else:
+                got_d = det._infer_fn(DET_IMGSZ, conf, DET_IOU, dtype)(card_four)
+            a = match_detections(want_d, got_d)
+            if a["share"] < share_min or a["max_score_gap"] > gap_max:
+                failed.append(f"{dtype_name} conf {conf}: {a}")
+            parts.append(f"conf {conf}: {a['matched_got']}/{a['n_got']} card and "
+                         f"{a['matched_ref']}/{a['n_ref']} CPU detections matched, score gap "
+                         f"{a['max_score_gap']:.3e}")
+        notes.append("; ".join(parts))
+    phase(name, t0,
+          f"stitch equal to `window` (accepted frames, H_abs within {h_err:.1e}, canvas "
+          f"identical), launches {counts}; detections {tuple(dets.boxes.shape)}, "
+          f"{int(dets.valid.sum())} valid at conf {DET_CONF}; stitch + detection "
+          f"{fps[0]:.2f} and {fps[1]:.2f} frames/s warm ({n / first_s:.2f} first call), "
+          f"stitch alone "
+          f"{w_fps:.2f} frames/s (`window`); detection {det_ms:.4f} ms per {n} frames "
+          f"({det_launches} kernel launches, {det_reads} card-to-host reads); peak "
+          f"{peak / 2**20:.1f} MiB allocated; vs the CPU float32 run on frames {DET_FRAMES}: "
+          + " | ".join(notes) + f"; on {card}")
+    check(not failed, f"{name}: beyond the bounds {DET_BOUNDS}: " + " | ".join(failed))
+    return counts
 
 
 def main() -> int:
@@ -480,15 +632,19 @@ def main() -> int:
         row_b = phase_patches(torch, dev, frames)
         # SIFT: one warp launch per window; one patch launch per window for
         # all its octaves, plus one for the first frame's features
-        sift_counts, H_abs = phase_window(torch, dev, frames, cam, card, "sift",
-                                          {"warp": N_WINDOWS, "patches": N_WINDOWS + 1})
+        sift_counts, sift_auxs, sift_m, sift_fps = phase_window(
+            torch, dev, frames, cam, card, "sift", {"warp": N_WINDOWS, "patches": N_WINDOWS + 1})
         # ORB: one warp launch per window; its patches are uint8 cuts (no kernel)
-        orb_counts, _ = phase_window(torch, dev, frames, cam, card, "orb",
-                                     {"warp": N_WINDOWS, "patches": 0})
-        row_a = warp_real(torch, dev, frames[1 : 1 + WINDOW], H_abs, hc, wc)
+        orb_counts = phase_window(torch, dev, frames, cam, card, "orb",
+                                  {"warp": N_WINDOWS, "patches": 0})[0]
+        by_path = {"window": sift_counts, "window_orb": orb_counts}
+        for model in DETECT_MODELS:
+            by_path[f"detect_{model}"] = phase_detect(
+                torch, dev, frames, card, model, (sift_counts, sift_auxs, sift_m, sift_fps))
+        row_a = warp_real(torch, dev, frames[1 : 1 + WINDOW], sift_auxs[0].H_abs, hc, wc)
         for row, key in ((row_a, "warp"), (row_b, "patches")):
-            row["launches"] = sift_counts[key] + orb_counts[key]
-            row["launches_by_path"] = {"window": sift_counts[key], "window_orb": orb_counts[key]}
+            row["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
+            row["launches"] = sum(row["launches_by_path"].values())
         rows = [row_a, row_b]
     except CheckFailed as e:
         say(f"FAIL: {e}")

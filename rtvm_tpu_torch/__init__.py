@@ -1,7 +1,9 @@
 """rtvm_tpu_torch — the PyTorch/CUDA port of rtvm_tpu, one slice at a time.
 
 The port covers the window step of the streaming mosaic stitcher
-(``mosaic.stitcher.VideMosaic``) with either detector, SIFT or ORB. The two
+(``mosaic.stitcher.VideMosaic``) with either detector, SIFT or ORB, and the
+per-frame YOLO detection that ``process_clip(det_fn=...)`` runs after the
+stitch (``detect.detector.ObjectDetector``, ``models.yolo``). The two
 kernels the JAX package wrote in Pallas for the TPU are hand-written CUDA here
 (``csrc/warp.cu``, ``csrc/patches.cu``), built with ``nvcc`` at first use and
 loaded with ctypes (``kernels.py``). Everything else is plain PyTorch.

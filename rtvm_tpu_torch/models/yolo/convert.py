@@ -1,0 +1,78 @@
+"""Carry a Flax YOLO checkpoint into the port's ``state_dict``.
+
+The port's modules carry Flax's names (see ``modules.py``), so a leaf path
+``params/C2f_0/Bottleneck_0/ConvBnSiLU_0/Conv_0/kernel`` is the key
+``C2f_0.Bottleneck_0.ConvBnSiLU_0.Conv_0.weight``: the collection
+(``params`` or ``batch_stats``) is dropped, ``/`` becomes ``.``, and only a
+convolution's ``kernel`` is renamed ``weight`` and moved from Flax's HWIO to
+PyTorch's OIHW (a depthwise ``(kh, kw, 1, C)`` becomes ``(C, 1, kh, kw)``).
+BatchNorm's ``scale``, ``bias``, ``mean`` and ``var`` keep their names.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from rtvm_tpu_torch.models.yolo.model import YOLOv8, YoloConfig
+
+COLLECTIONS = ("params", "batch_stats")
+
+
+def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{'a/b/c': leaf} of a nested mapping; a flat {path: leaf} passes through."""
+    out = {}
+    for key, sub in tree.items():
+        if isinstance(sub, Mapping):
+            out.update(flatten_tree(sub, f"{prefix}{key}/"))
+        else:
+            out[f"{prefix}{key}"] = sub
+    return out
+
+
+def state_dict_key(path: str) -> Tuple[str, bool]:
+    """(state_dict key, whether the leaf is a conv kernel to transpose) of a
+    Flax leaf path."""
+    parts = path.split("/")
+    if parts[0] not in COLLECTIONS:
+        raise ValueError(f"{path!r}: not under {COLLECTIONS}")
+    is_kernel = parts[-1] == "kernel"
+    if is_kernel:
+        parts[-1] = "weight"
+    return ".".join(parts[1:]), is_kernel
+
+
+def flax_to_torch(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """{state_dict key: float32 tensor} of Flax variables of any of the port's
+    modules: the nested ``{'params': ..., 'batch_stats': ...}`` of numpy
+    arrays, or the flat ``{path: array}`` that
+    ``utils.checkpoint.load_pytree_npz`` returns. Checks nothing."""
+    sd = {}
+    for path, leaf in flatten_tree(tree).items():
+        key, is_kernel = state_dict_key(path)
+        a = np.asarray(leaf, dtype=np.float32)
+        if is_kernel:
+            a = a.transpose(3, 2, 0, 1)
+        sd[key] = torch.from_numpy(np.ascontiguousarray(a))
+    return sd
+
+
+def flax_to_state_dict(tree: Mapping, variant: str) -> Dict[str, torch.Tensor]:
+    """The port's state_dict of the whole model `variant` from its Flax
+    variables (see flax_to_torch). Raises ValueError unless the names and
+    shapes are exactly those of the port's model of `variant`, with the class
+    count that the head's last convolution gives."""
+    sd = flax_to_torch(tree)
+    num_classes = sd.get("DetectHead_0.Conv_1.bias", torch.empty(0)).shape[0]
+    with torch.device("meta"):
+        want = YOLOv8(YoloConfig(variant=variant, num_classes=num_classes)).state_dict()
+    missing, extra = sorted(set(want) - set(sd)), sorted(set(sd) - set(want))
+    if missing or extra:
+        raise ValueError(f"{variant}: checkpoint names differ from the model's: "
+                         f"missing {missing[:5]}, unexpected {extra[:5]}")
+    bad = [k for k in want if tuple(want[k].shape) != tuple(sd[k].shape)]
+    if bad:
+        raise ValueError(f"{variant}: shapes differ at {bad[:5]}")
+    return sd

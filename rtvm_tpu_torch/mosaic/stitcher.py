@@ -262,10 +262,16 @@ def make_window_step(frame_shape: Tuple[int, int, int], cfg: MosaicConfig):
     return make_step_body(frame_shape, cfg)
 
 
-def make_clip_step(frame_shape: Tuple[int, int, int], cfg: MosaicConfig):
+def make_clip_step(frame_shape: Tuple[int, int, int], cfg: MosaicConfig, det_fn=None):
     """Multi-window step: runs W whole windows [W, B, H, Wd, 3] one after the
     other, carrying the state. Returns clip(state, windows, seed, fweight,
-    wtable) -> (state, WindowAux stacked over W)."""
+    wtable) -> (state, WindowAux stacked over W[, detections]).
+
+    det_fn, if given, maps frames_u8 [N, H, W, 3] to a NamedTuple of tensors
+    with N leading (e.g. ObjectDetector._infer_fn(...)). It runs once
+    over all W*B frames of the clip after the window loop (detection carries
+    nothing from frame to frame), and its outputs come back as [W, B, ...].
+    Its memory grows with W*B, so a caller chunks a long clip."""
     body = make_step_body(frame_shape, cfg)
 
     def clip(state, windows, seed, fweight, wtable):
@@ -273,7 +279,13 @@ def make_clip_step(frame_shape: Tuple[int, int, int], cfg: MosaicConfig):
         for w in range(windows.shape[0]):
             state, aux = body(state, windows[w], seed, fweight, wtable)
             auxs.append(aux)
-        return state, WindowAux(*(torch.stack(f) for f in zip(*auxs)))
+        aux = WindowAux(*(torch.stack(f) for f in zip(*auxs)))
+        if det_fn is None:
+            return state, aux
+        w, b = windows.shape[0], windows.shape[1]
+        with record_function("clip.detect"):
+            dets = det_fn(windows.reshape((w * b,) + windows.shape[2:]))
+        return state, aux, type(dets)(*(d.reshape((w, b) + d.shape[1:]) for d in dets))
 
     return clip
 
@@ -382,12 +394,15 @@ class VideMosaic:
         )
         return aux
 
-    def process_clip(self, windows) -> WindowAux:
-        """Process [W, B, H, Wd, 3] uint8 windows in one call (see make_clip_step)."""
-        self.state, aux = self._clip(
-            self.state, self._frames(windows), self.seed, self._fweight, self._wtable
-        )
-        return aux
+    def process_clip(self, windows, det_fn=None):
+        """Process [W, B, H, Wd, 3] uint8 windows in one call (see
+        make_clip_step). Returns the stacked WindowAux, or (aux, detections
+        as [W, B, ...]) when det_fn is given."""
+        clip = self._clip if det_fn is None else make_clip_step(self.frame_shape, self.config,
+                                                                det_fn)
+        self.state, *out = clip(self.state, self._frames(windows), self.seed, self._fweight,
+                                self._wtable)
+        return out[0] if det_fn is None else tuple(out)
 
     def process_frame(self, frame_cur, frame_count: int = 0) -> bool:
         """Single-frame path. Returns True if the frame's homography was accepted."""

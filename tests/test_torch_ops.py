@@ -253,7 +253,10 @@ mods = ["rtvm_tpu_torch", "rtvm_tpu_torch.config", "rtvm_tpu_torch.device",
         "rtvm_tpu_torch.ops.pallas_warp", "rtvm_tpu_torch.ops.match",
         "rtvm_tpu_torch.ops.warp", "rtvm_tpu_torch.geometry.homography",
         "rtvm_tpu_torch.mosaic.stitcher", "rtvm_tpu_torch.ops.features.orb",
-        "rtvm_tpu_torch.entry"]
+        "rtvm_tpu_torch.entry", "rtvm_tpu_torch.detect.classes",
+        "rtvm_tpu_torch.detect.detector", "rtvm_tpu_torch.utils.checkpoint",
+        "rtvm_tpu_torch.models.yolo.modules", "rtvm_tpu_torch.models.yolo.model",
+        "rtvm_tpu_torch.models.yolo.convert", "rtvm_tpu_torch.models.yolo.postprocess"]
 for m in mods:
     importlib.import_module(m)
 py_compile.compile("chip_smoke.py", doraise=True)
@@ -267,7 +270,7 @@ def test_port_imports_without_jax_cv2_or_reference_package():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_PROBE], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "OK 17"
+    assert proc.stdout.strip() == "OK 24"
 
 
 def test_default_device_is_cuda_and_never_falls_back():

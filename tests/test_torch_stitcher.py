@@ -159,6 +159,77 @@ def test_process_clip_matches_sequential_windows(scene):
     assert int(m2.state.frame_idx) == 9
 
 
+@pytest.fixture(scope="module")
+def clip_detectors():
+    """The port's YOLOv8n detector on the CPU and a float32 JAX counterpart of
+    its _infer_fn (the JAX package's own pieces, un-jitted; the checkpoint
+    restored against an abstract init, so nothing is compiled)."""
+    from rtvm_tpu.models.yolo import postprocess as JP
+    from rtvm_tpu.models.yolo.model import YOLOv8 as JaxYOLO, YoloConfig
+    from rtvm_tpu.utils.checkpoint import load_pytree_npz
+    from rtvm_tpu_torch.detect.detector import ObjectDetector
+
+    td = ObjectDetector("yolov8n", load_world=False, device="cpu")
+    jm = JaxYOLO(YoloConfig("yolov8n", num_classes=len(td.class_names)))
+    like = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jax.numpy.zeros((1, 64, 64, 3))))
+    variables = load_pytree_npz(td.weights_source, dict(like))
+
+    def jax_det_fn(frames):
+        x, scale, py, px = JP.preprocess_frames(jax.numpy.asarray(frames), CLIP_IMGSZ)
+        box_l, cls_l = jm.apply(variables, x)
+        boxes, scores = JP.decode_predictions(box_l, cls_l)
+        dets = [JP.nms_fixed(b, s, CLIP_CONF, 0.45) for b, s in zip(boxes, scores)]
+        dets = [d._replace(boxes=JP.unletterbox_boxes(d.boxes, scale, py, px)) for d in dets]
+        return [torch.from_numpy(np.stack([np.asarray(getattr(d, f)) for d in dets]))
+                for f in ("boxes", "scores", "classes", "valid")]
+
+    return td._infer_fn(CLIP_IMGSZ, CLIP_CONF, 0.45, torch.float32), jax_det_fn
+
+
+CLIP_IMGSZ, CLIP_CONF = 128, 0.01  # 160x256 frames -> 80x128, padded to 128x128
+
+
+def test_process_clip_with_det_fn_leaves_the_stitch_as_the_window_loop(scene, clip_detectors):
+    det_fn, _ = clip_detectors
+    frames = _frames(scene, 9)
+    windows = np.stack([np.stack(frames[1:5]), np.stack(frames[5:9])])
+    m1 = VideMosaic(frames[0], detector_type="sift", config=_config(), device="cpu")
+    auxs = [m1.process_window(w) for w in windows]
+    m2 = VideMosaic(frames[0], detector_type="sift", config=_config(), device="cpu")
+    aux, dets = m2.process_clip(windows, det_fn=det_fn)
+    for name, got in aux._asdict().items():
+        assert torch.equal(got, torch.stack([getattr(a, name) for a in auxs])), name
+    for name, got in m2.state._asdict().items():
+        assert torch.equal(got, getattr(m1.state, name)), name
+    assert tuple(dets.boxes.shape) == (2, 4, 300, 4) and tuple(dets.valid.shape) == (2, 4, 300)
+
+
+def test_clip_detections_are_det_fn_over_the_flat_clip_and_match_jax(scene, clip_detectors):
+    from rtvm_tpu_torch.models.yolo.postprocess import Detections, match_detections
+
+    det_fn, jax_det_fn = clip_detectors
+    frames = _frames(scene, 9)
+    windows = np.stack([np.stack(frames[1:5]), np.stack(frames[5:9])])
+    calls = []
+
+    def counting_det_fn(flat):
+        calls.append(tuple(flat.shape))
+        return det_fn(flat)
+
+    m = VideMosaic(frames[0], detector_type="sift", config=_config(), device="cpu")
+    _, dets = m.process_clip(windows, det_fn=counting_det_fn)
+    assert calls == [(8, 160, 256, 3)]  # once, over all W*B frames
+    flat = np.stack(frames[1:9])
+    direct = det_fn(flat)
+    for name, got in dets._asdict().items():
+        assert torch.equal(got.reshape((8,) + got.shape[2:]), getattr(direct, name)), name
+    want = Detections(*jax_det_fn(flat))
+    got = Detections(*(t.reshape((8,) + t.shape[2:]) for t in dets))
+    agree = match_detections(want, got)
+    assert agree["n_ref"] > 0 and agree["share"] == 1.0, agree
+    assert agree["max_score_gap"] <= 1e-4, agree
+
+
 def test_checkpoint_restore_roundtrip(scene):
     frames = _frames(scene, 4)
     m = VideMosaic(frames[0], detector_type="sift", config=_config(), device="cpu")
