@@ -26,7 +26,20 @@ Phases, each printed with its result and seconds on its own line:
      frames, and the head logits, held against the port's own float32 run
      on the CPU, and a float32 run on the card held tighter; frames/s,
      detection ms, launches, card-to-host reads and peak memory;
-  8. kernel A against its plain version on the maps of a window of the SIFT
+  8. the pipeline driver (BASELINE config 3 end to end): the CLI's
+     `mosaic <clip.npy> --detector sift --window 16 --no-detect --no-nav
+     --per-frame-detect` on the same clip (phase `pipeline`: stats, a canvas
+     equal to phase 5's, mosaic.jpg, mosaic_progress.jpg and Detections/
+     as well-formed JPEG, per-frame detections against phase 7's), then
+     run_mosaic(fused=True) with YOLO11n (phase `pipeline_fused`: equal to
+     phase 7's stitch, the callback protocol), each with its wall time,
+     frames/s and the driver's stage times;
+  9. canvas growth (phase `grow`): a second clip drifting (6, -4) px a frame
+     off the default canvas, stitched with auto_grow=True through the window
+     loop (at most one device sync a window) and through the fused path on a
+     pre-scanned canvas; the known camera path in the grown or pre-scanned
+     canvas's coordinates, and kernel A against its plain version on it;
+ 10. kernel A against its plain version on the maps of a window of the SIFT
      run, and timed through warp_batch on them;
 then one JSON line of per-kernel numbers, the elapsed time, and as the last
 line {"ok": true, "device": {...}}. Any failed check exits non-zero. Without
@@ -39,8 +52,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -63,6 +78,7 @@ DETECT_MODELS = {  # model: (checkpoint, its leaf count, its value count)
 DET_IMGSZ, DET_CONF, DET_IOU = 640, 0.25, 0.45
 DET_FRAMES = [0, 17, 31, 47]  # the clip's frames held against the CPU
 H_ABS_SAME = 1e-6
+GROW_STEP = (6, -4)  # px a frame: 288 px right over the clip, past the 768-wide canvas
 # Bounds against the port's float32 run on the CPU, per dtype on the card:
 # (largest |d| of the head logits over their largest |value|, least share of
 # detections matched at IoU >= 0.9 with the same class, largest score gap of
@@ -124,17 +140,18 @@ def make_world(rng: np.random.RandomState, h: int, w: int) -> np.ndarray:
     return np.clip(img, 0, 255).astype(np.uint8)
 
 
-def camera_path(n: int) -> np.ndarray:
+def camera_path(n: int, step=(2, -4)) -> np.ndarray:
     """Integer (x, y) crop origins of frames 0..n-1: a steady drift right and
     up. Steady, because the stitcher's 5-frame homography smoothing lags any
-    change of speed, and the trajectory check is against the raw path."""
+    change of speed, and the trajectory check is against the raw path. Even
+    steps: an odd one biases SIFT's coarse octaves (ROADMAP Queue 3 item 3)."""
     i = np.arange(n)
-    xs, ys = 2 * i, -4 * i
+    xs, ys = step[0] * i, step[1] * i
     return np.stack([xs - xs.min(), ys - ys.min()], -1)
 
 
-def make_clip(rng, n: int, h: int, w: int):
-    path = camera_path(n)
+def make_clip(rng, n: int, h: int, w: int, step=(2, -4)):
+    path = camera_path(n, step)
     world = make_world(rng, h + int(path[:, 1].max()) + 8, w + int(path[:, 0].max()) + 8)
     frames = np.stack([world[y : y + h, x : x + w] for x, y in path])
     return frames, path
@@ -481,9 +498,8 @@ def _card_copies_and_launches(torch, fn) -> tuple:
 def phase_detect(torch, dev, frames: np.ndarray, card: str, model: str, window_run) -> dict:
     """BASELINE config 3 for one model: the stitch of phase `window` with the
     detection hoisted after it, over the whole clip. Returns the kernels'
-    launch counts of the main-path run."""
-    import os
-
+    launch counts of the main-path run, its canvas, accepted frames and
+    number of detections."""
     from rtvm_tpu_torch import kernels
     from rtvm_tpu_torch.detect.detector import ObjectDetector
     from rtvm_tpu_torch.models.yolo.postprocess import Detections, match_detections
@@ -586,6 +602,313 @@ def phase_detect(torch, dev, frames: np.ndarray, card: str, model: str, window_r
           f"{peak / 2**20:.1f} MiB allocated; vs the CPU float32 run on frames {DET_FRAMES}: "
           + " | ".join(notes) + f"; on {card}")
     check(not failed, f"{name}: beyond the bounds {DET_BOUNDS}: " + " | ".join(failed))
+    return {"counts": counts, "canvas": m.state.canvas, "accepted": int(aux.ok.sum()),
+            "n_dets": int(dets.valid.sum()),
+            "dets": Detections(*(v.reshape((n,) + v.shape[2:]) for v in dets))}
+
+
+def corner_error(H_abs: np.ndarray, shift: np.ndarray) -> float:
+    """Largest distance of the frames' warped corners under H_abs [n, 3, 3]
+    from the corners shifted by the known path, shift [n, 2] (x, y)."""
+    hf, wf = FRAME_H, FRAME_W
+    corners = np.array([[0, 0, 1], [wf, 0, 1], [wf, hf, 1], [0, hf, 1]], np.float64).T
+    got = np.einsum("bij,jk->bik", H_abs.astype(np.float64), corners)
+    got = (got[:, :2] / got[:, 2:3]).transpose(0, 2, 1)
+    return float(np.abs(got - (corners[:2].T[None] + shift[:, None, :])).max())
+
+
+def jpeg_dims(path: str) -> tuple:
+    """(height, width) of a JPEG file; fails unless it has SOI, EOI and SOF0."""
+    from rtvm_tpu_torch.io.jpeg import jpeg_size
+
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        return jpeg_size(data)
+    except ValueError as e:
+        raise CheckFailed(f"{path}: {e}") from e
+
+
+class _Recorder:
+    """Wraps ObjectDetector._run_pass, ObjectDetector._infer_fn and the
+    driver's StageTimer to keep what the driver computed: each frame's
+    detections (as dicts and as the raw Detections), the detector's
+    checkpoint, the timer. Each pass is timed in three parts: the wait for
+    the card's queued work before it (a synchronize), the inference with a
+    synchronize after it, and the rest (the reads to the host and the dicts)."""
+
+    def __init__(self, torch):
+        from rtvm_tpu_torch.detect.detector import ObjectDetector
+        from rtvm_tpu_torch.pipelines import mosaic_pipeline
+
+        self.torch, self.cls, self.mod = torch, ObjectDetector, mosaic_pipeline
+        self.per_frame, self.raw, self.sources, self.timers = [], [], set(), []
+        self.pass_ms = []  # (wait, infer, reads and dicts) per pass
+
+    def __enter__(self):
+        run_pass, infer_fn, timer_cls = self.cls._run_pass, self.cls._infer_fn, self.mod.StageTimer
+        rec, sync = self, self.torch.cuda.synchronize
+
+        def infer(det, *a, **k):
+            fn = infer_fn(det, *a, **k)
+
+            def run(images):
+                t = time.perf_counter()
+                out = fn(images)
+                sync()
+                rec.infer_s = time.perf_counter() - t
+                rec.raw.append(out)
+                return out
+            return run
+
+        def recording(det, images, *a, **k):
+            t0 = time.perf_counter()
+            sync()
+            t1 = time.perf_counter()
+            out = run_pass(det, images, *a, **k)
+            dt = time.perf_counter() - t1
+            rec.pass_ms.append(((t1 - t0) * 1e3, rec.infer_s * 1e3, (dt - rec.infer_s) * 1e3))
+            rec.per_frame.extend(out)
+            rec.sources.add(det.weights_source)
+            return out
+
+        def timer(*a, **k):
+            rec.timers.append(timer_cls(*a, **k))
+            return rec.timers[-1]
+
+        self.saved = run_pass, infer_fn, timer_cls
+        self.cls._run_pass, self.cls._infer_fn, self.mod.StageTimer = recording, infer, timer
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._run_pass, self.cls._infer_fn, self.mod.StageTimer = self.saved
+
+
+def phase_pipeline(torch, dev, clip: str, tmp: str, card: str, window_m, det11: dict) -> dict:
+    """The CLI's mosaic command on the clip: BASELINE config 3 end to end.
+    Returns the kernels' launch counts."""
+    from rtvm_tpu_torch import cli, kernels
+    from rtvm_tpu_torch.io.jpeg import encode_jpg
+    from rtvm_tpu_torch.models.yolo.postprocess import Detections, match_detections
+    from rtvm_tpu_torch.utils.image import crop_black_areas, scale_to_screen
+
+    t0 = time.time()
+    out = os.path.join(tmp, "out")
+    argv = ["mosaic", clip, "--output-dir", out, "--detector", "sift", "--window", str(WINDOW),
+            "--no-detect", "--no-nav", "--per-frame-detect"]
+    with _Recorder(torch) as rec:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t = time.time()
+        m, stats = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        counts = dict(kernels.launches)
+    n = N_WINDOWS * WINDOW
+    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1}
+    check(counts == want, f"pipeline: launch counts {counts}, expected {want}")
+    check(stats["frames"] == n + 1 and stats["accepted"] >= MIN_ACCEPTED,
+          f"pipeline: stats {stats}")
+    check(m.device.type == "cuda", f"pipeline: ran on {m.device}")
+    check(torch.equal(m.state.canvas, window_m.state.canvas), "pipeline: canvas differs from `window`")
+    check(len(rec.sources) == 1 and os.path.samefile(rec.sources.pop(), DETECT_MODELS["yolo11n"][0]),
+          f"pipeline: the frame detector loaded {rec.sources}")
+    shown = scale_to_screen(crop_black_areas(m.output_img_u8, threshold=80, margin=30))
+    dims = jpeg_dims(os.path.join(out, "mosaic.jpg"))
+    check(dims == shown.shape[:2], f"pipeline: mosaic.jpg is {dims}, the cropped mosaic "
+                                   f"{shown.shape[:2]}")
+    prog = jpeg_dims(os.path.join(out, "mosaic_progress.jpg"))
+    check(prog == m.canvas_shape[:2], f"pipeline: mosaic_progress.jpg is {prog}")
+    check(len(rec.per_frame) == n, f"pipeline: {len(rec.per_frame)} frames detected")
+    want_files = [f"frame_{i + 1:05d}_detected.jpg" for i, d in enumerate(rec.per_frame) if d]
+    files = sorted(os.listdir(os.path.join(out, "Detections")))
+    check(files == want_files, f"pipeline: Detections/ holds {len(files)} files, "
+                               f"{len(want_files)} frames have a detection")
+    for f in files:
+        d = jpeg_dims(os.path.join(out, "Detections", f))
+        check(d == (FRAME_H, FRAME_W), f"pipeline: {f} is {d}")
+    n_det = sum(len(d) for d in rec.per_frame)
+    check(abs(n_det - det11["n_dets"]) <= 0.1 * det11["n_dets"],
+          f"pipeline: {n_det} detections, `detect_yolo11n` {det11['n_dets']}")
+    # frame by frame against `detect_yolo11n`'s: the same frames and weights,
+    # batches of 16 here and of 48 there
+    raw = Detections(*(torch.cat(v) for v in zip(*rec.raw)))
+    check(raw.boxes.shape[0] == n and int(raw.valid.sum()) == n_det,
+          f"pipeline: raw detections {tuple(raw.boxes.shape)}, {int(raw.valid.sum())} valid")
+    agree = match_detections(det11["dets"], raw)
+    _, share_min, gap_max = DET_BOUNDS["bfloat16"]
+    check(agree["share"] >= share_min and agree["max_score_gap"] <= gap_max,
+          f"pipeline: detections against `detect_yolo11n`'s frame by frame {agree}")
+    tm = rec.timers[0]
+    stage = {k: (tm.totals[k] * 1e3, tm.counts[k]) for k in ("window", "detect", "draw", "export",
+                                                               "mosaic_jpg")}
+    # the JPEG writer alone on the host, on a frame of the clip and on a
+    # 1080x1920 image of 3x3 such frames
+    frame = np.array(np.load(clip, mmap_mode="r")[1])
+    jpg_ms = {}
+    for size, img, reps in (("360x640", frame, 5), ("1080x1920", np.tile(frame, (3, 3, 1)), 2)):
+        encode_jpg(img)
+        t = time.perf_counter()
+        for _ in range(reps):
+            encode_jpg(img)
+        jpg_ms[size] = (time.perf_counter() - t) / reps * 1e3
+    phase("pipeline", t0,
+          f"{stats['frames']} frames, {stats['accepted']} accepted, launches {counts}, canvas "
+          f"identical to `window`; mosaic.jpg {dims}, mosaic_progress.jpg {prog}, "
+          f"{len(files)} Detections/ files; {n_det} detections (`detect_yolo11n` "
+          f"{det11['n_dets']}; frame by frame {agree['matched_got']}/{agree['n_got']} here and "
+          f"{agree['matched_ref']}/{agree['n_ref']} there matched, score gap "
+          f"{agree['max_score_gap']:.3e}); wall {wall:.3f} s, {stats['frames'] / wall:.2f} "
+          f"frames/s (driver's fps {stats['fps']:.2f}); stages ms (calls): "
+          + ", ".join(f"{k} {v[0]:.1f} ({v[1]})" for k, v in stage.items())
+          + "; detect passes ms (wait for queued work, inference synced, reads and dicts): "
+          + ", ".join(f"({a:.1f}, {b:.1f}, {c:.1f})" for a, b, c in rec.pass_ms)
+          + f"; JPEG {stage['export'][0] / max(stage['export'][1], 1):.2f} ms and drawing "
+          f"{stage['draw'][0] / max(stage['draw'][1], 1):.2f} ms a frame; the JPEG writer alone "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in jpg_ms.items()) + f" on the host; on {card}")
+    return counts
+
+
+def phase_pipeline_fused(torch, clip: str, card: str, det11: dict) -> dict:
+    """run_mosaic(fused=True) with YOLO11n inside the clip call, on the
+    default device. Returns the kernels' launch counts."""
+    from rtvm_tpu_torch import kernels
+    from rtvm_tpu_torch.config import MosaicConfig
+    from rtvm_tpu_torch.detect.detector import ObjectDetector
+    from rtvm_tpu_torch.pipelines.mosaic_pipeline import run_mosaic
+
+    t0 = time.time()
+    det = ObjectDetector("yolo11n", load_world=False)
+    check(det.weights_loaded, "pipeline_fused: no YOLO11n checkpoint")
+    calls = []
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.time()
+    m, stats = run_mosaic(clip, config=MosaicConfig(window_size=WINDOW), fused=True,
+                          per_frame_detector=det,
+                          update_callback=lambda fc, img, pct: calls.append((fc, img.shape, pct)))
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = dict(kernels.launches)
+    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1}
+    check(counts == want, f"pipeline_fused: launch counts {counts}, expected {want}")
+    check(stats["fused_windows"] == N_WINDOWS, f"pipeline_fused: stats {stats}")
+    check(stats["accepted"] == det11["accepted"],
+          f"pipeline_fused: {stats['accepted']} accepted, `detect_yolo11n` {det11['accepted']}")
+    check(torch.equal(m.state.canvas, det11["canvas"]),
+          "pipeline_fused: canvas differs from `detect_yolo11n`")
+    check(stats["det_scores_shape"] == (N_WINDOWS, WINDOW, 300), f"pipeline_fused: {stats}")
+    fcs = [c[0] for c in calls]
+    check(len(calls) >= 2 and fcs == sorted(fcs) and calls[-1][2] == 100.0
+          and all(c[1] == m.output_img_u8.shape and 0 <= c[2] <= 100 for c in calls),
+          f"pipeline_fused: callbacks {calls}")
+    phase("pipeline_fused", t0,
+          f"{stats['frames']} frames, {stats['accepted']} accepted, {stats['fused_windows']} "
+          f"fused windows, launches {counts}, canvas identical to `detect_yolo11n`, detections "
+          f"{stats['det_scores_shape']}, callbacks {[(c[0], round(c[2], 1)) for c in calls]}; "
+          f"wall {wall:.3f} s, {stats['frames'] / wall:.2f} frames/s (steady "
+          f"{stats.get('steady_fps', float('nan')):.2f}); on {card}")
+    return counts
+
+
+def phase_grow(torch, dev, tmp: str, card: str) -> dict:
+    """auto_grow on a clip that leaves the default canvas: the window loop
+    (growth by _maybe_grow), then the fused path on a pre-scanned canvas.
+    Returns the kernels' launch counts of both runs."""
+    import dataclasses
+    import warnings
+
+    from rtvm_tpu_torch import kernels
+    from rtvm_tpu_torch.config import MosaicConfig
+    from rtvm_tpu_torch.mosaic.prescan import prescan_canvas_from_video
+    from rtvm_tpu_torch.mosaic.stitcher import VideMosaic
+    from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch, warp_plain
+    from rtvm_tpu_torch.pipelines.mosaic_pipeline import run_mosaic
+
+    t0 = time.time()
+    n = N_WINDOWS * WINDOW
+    frames, cam = make_clip(np.random.RandomState(SEED + 1), n + 1, FRAME_H, FRAME_W, GROW_STEP)
+    clip = os.path.join(tmp, "grow.npy")
+    np.save(clip, frames)
+    default = (2 * FRAME_H, int(1.2 * FRAME_W))
+    cfg = MosaicConfig(auto_grow=True, window_size=WINDOW)
+    shift = cam[1 : n + 1] - cam[0]
+
+    def warp_equal(win_frames, H_abs, hc, wc, what):
+        fr = torch.as_tensor(win_frames, device=dev).to(torch.float32).permute(0, 3, 1, 2)
+        G = inverse_maps(H_abs.to(dev)).contiguous()
+        out_k, out_p = warp_batch(fr.contiguous(), G, hc, wc), warp_plain(fr.contiguous(), G, hc, wc)
+        err = float((out_k - out_p).abs().max())
+        check(torch.equal(out_k, out_p), f"grow {what}: warp kernel vs plain max |d| {err}")
+
+    # the window loop: growth after each window's step
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.time()
+    m = VideMosaic(frames[0], detector_type="sift", config=cfg, seed=SEED, device=dev)
+    H_abs, ok, want_c, syncs, before = [], [], [], [], []
+    for wi in range(N_WINDOWS):
+        win = torch.as_tensor(frames[1 + wi * WINDOW : 1 + (wi + 1) * WINDOW]).to(dev)
+        before.append((m.canvas_shape, m.h_offset, m.w_offset))
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                aux = m.process_window(win)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        syncs.append(sum("synchroniz" in str(c.message) for c in caught))
+        H_abs.append(aux.H_abs)
+        ok.append(aux.blended & aux.ok)
+        want_c.append(shift[wi * WINDOW : (wi + 1) * WINDOW] + np.array([before[-1][1], before[-1][2]]))
+    torch.cuda.synchronize()
+    wall_w = time.time() - t
+    counts = dict(kernels.launches)
+    accepted = int(torch.cat(ok).sum())
+    check(accepted >= MIN_ACCEPTED, f"grow: window loop accepted {accepted} of {n}")
+    err_w = corner_error(torch.cat(H_abs).cpu().numpy(), np.concatenate(want_c))
+    check(err_w <= TRAJ_TOL_PX, f"grow: window loop corners off by {err_w:.3f} px")
+    grown = sum(b[0] != a[0] for a, b in zip(before, before[1:] + [(m.canvas_shape,)]))
+    check(grown >= 1 and m.canvas_shape[1] > default[1],
+          f"grow: canvas {m.canvas_shape} after the window loop, grown {grown} times")
+    check(max(syncs) <= 1, f"grow: device syncs per window {syncs}")
+    (hc, wc, _), _, _ = before[-1]
+    warp_equal(frames[1 + (N_WINDOWS - 1) * WINDOW : 1 + n], H_abs[-1], hc, wc, "window loop")
+
+    # the fused path, on the canvas the pre-scan sizes
+    kernels.reset_launches()
+    t = time.time()
+    mf, stats = run_mosaic(clip, config=cfg, fused=True)
+    torch.cuda.synchronize()
+    wall_f = time.time() - t
+    counts = {k: counts.get(k, 0) + v for k, v in kernels.launches.items()}
+    t = time.time()
+    pre = prescan_canvas_from_video(clip)
+    prescan_s = time.time() - t
+    check(pre is not None and mf.canvas_shape[:2] == pre[0] and stats["fused_windows"] == N_WINDOWS,
+          f"grow: fused run on {mf.canvas_shape}, pre-scan {pre}, stats {stats}")
+    check(stats["accepted"] >= MIN_ACCEPTED and pre[0][1] > default[1],
+          f"grow: fused {stats}, pre-scanned canvas {pre[0]}")
+    # the same stitch by hand, for its H_abs (not counted as main-path launches)
+    fixed = dataclasses.replace(cfg, canvas_hw=pre[0], seed_offset=pre[1], auto_grow=False)
+    mh = VideMosaic(frames[0], detector_type="sift", config=fixed, seed=SEED, device=dev)
+    aux = mh.process_clip(torch.as_tensor(frames[1 : 1 + n]).reshape(
+        N_WINDOWS, WINDOW, FRAME_H, FRAME_W, 3).to(dev))
+    check(torch.equal(mh.state.canvas, mf.state.canvas), "grow: fused run and process_clip differ")
+    err_f = corner_error(aux.H_abs.reshape(n, 3, 3).cpu().numpy(),
+                         shift + np.array([mh.h_offset, mh.w_offset]))
+    check(err_f <= TRAJ_TOL_PX, f"grow: pre-scanned canvas corners off by {err_f:.3f} px")
+    warp_equal(frames[1 + n - WINDOW : 1 + n], aux.H_abs[-1], pre[0][0], pre[0][1], "pre-scan")
+    want = {"warp": 2 * N_WINDOWS, "patches": 2 * (N_WINDOWS + 1)}
+    check(counts == want, f"grow: launch counts {counts}, expected {want}")
+    phase("grow", t0,
+          f"drift {GROW_STEP} px a frame; window loop: {accepted}/{n} accepted, canvas "
+          f"{default} -> {m.canvas_shape[:2]} ({grown} growths), corners within {err_w:.4f} px, "
+          f"device syncs per window {syncs}, {n / wall_w:.2f} frames/s; fused on the "
+          f"pre-scanned canvas {pre[0]} (seed offset {pre[1]}): {stats['accepted']}/{n} accepted, "
+          f"corners within {err_f:.4f} px, {stats['frames'] / wall_f:.2f} frames/s with the "
+          f"pre-scan, the pre-scan alone {prescan_s * 1e3:.1f} ms; launches {counts}; kernel A "
+          f"bitwise equal to warp_plain on both canvases; on {card}")
     return counts
 
 
@@ -638,9 +961,18 @@ def main() -> int:
         orb_counts = phase_window(torch, dev, frames, cam, card, "orb",
                                   {"warp": N_WINDOWS, "patches": 0})[0]
         by_path = {"window": sift_counts, "window_orb": orb_counts}
+        det = {}
         for model in DETECT_MODELS:
-            by_path[f"detect_{model}"] = phase_detect(
+            det[model] = phase_detect(
                 torch, dev, frames, card, model, (sift_counts, sift_auxs, sift_m, sift_fps))
+            by_path[f"detect_{model}"] = det[model]["counts"]
+        with tempfile.TemporaryDirectory() as tmp:
+            clip = os.path.join(tmp, "clip.npy")
+            np.save(clip, frames)
+            by_path["pipeline"] = phase_pipeline(torch, dev, clip, tmp, card, sift_m,
+                                                 det["yolo11n"])
+            by_path["pipeline_fused"] = phase_pipeline_fused(torch, clip, card, det["yolo11n"])
+            by_path["grow"] = phase_grow(torch, dev, tmp, card)
         row_a = warp_real(torch, dev, frames[1 : 1 + WINDOW], sift_auxs[0].H_abs, hc, wc)
         for row, key in ((row_a, "warp"), (row_b, "patches")):
             row["launches_by_path"] = {p: c[key] for p, c in by_path.items()}

@@ -8,11 +8,12 @@ the model in bfloat16 by default, as the JAX detector does (every weight and
 the input cast to bf16, the logits cast back to float32 for decode and NMS);
 ``dtype=torch.float32`` runs it in float32.
 
+``draw_detections`` draws with ``utils/draw.py`` in place of cv2.
+
 Not ported yet (ROADMAP.md, Queue 1 item 5): ``detect_objects`` (CLAHE,
-the classical detectors, the open-vocabulary model), ``draw_detections``
-(cv2), the ultralytics ``.pt`` route of the constructor, and the
-open-vocabulary companion that ``load_world=True`` loads. Each raises
-NotImplementedError.
+the classical detectors, the open-vocabulary model), the ultralytics ``.pt``
+route of the constructor, and the open-vocabulary companion that
+``load_world=True`` loads. Each raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from rtvm_tpu_torch.device import resolve_device
 from rtvm_tpu_torch.models.yolo import postprocess as pp
 from rtvm_tpu_torch.models.yolo.convert import flax_to_state_dict
 from rtvm_tpu_torch.models.yolo.model import build_yolo
+from rtvm_tpu_torch.utils import draw
 from rtvm_tpu_torch.utils.checkpoint import load_pytree_npz
 
 _REPO_WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -159,5 +161,16 @@ class ObjectDetector:
                           "classical detectors)")
 
     @staticmethod
-    def draw_detections(image, dets):
-        raise _not_ported("draw_detections")
+    def draw_detections(image: np.ndarray, dets: List[dict]) -> np.ndarray:
+        """A copy of the BGR uint8 `image` with each detection's box (thickness
+        2) and its label "{class} {confidence:.2f}" above it, in the JAX
+        class's colours."""
+        out = np.array(image, copy=True)
+        colors = {"building": (0, 140, 255), "car": (0, 255, 0), "person": (0, 0, 255)}
+        for d in dets:
+            x1, y1, x2, y2 = [int(v) for v in d["bbox"]]
+            c = colors.get(d["class"], (255, 200, 0))
+            draw.rectangle(out, (x1, y1), (x2, y2), c, 2)
+            draw.put_text(out, f"{d['class']} {d['confidence']:.2f}", (x1, max(y1 - 4, 10)),
+                          0.45, c)
+        return out

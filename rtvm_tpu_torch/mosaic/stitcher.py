@@ -26,6 +26,7 @@ the tests replay the JAX package's random stream.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -35,6 +36,7 @@ from torch.profiler import record_function
 from rtvm_tpu_torch.config import MosaicConfig
 from rtvm_tpu_torch.device import resolve_device
 from rtvm_tpu_torch.geometry import homography as geo
+from rtvm_tpu_torch.io.jpeg import imwrite_jpg
 from rtvm_tpu_torch.ops import color
 from rtvm_tpu_torch.ops import match as match_ops
 from rtvm_tpu_torch.ops import warp as warp_ops
@@ -42,11 +44,11 @@ from rtvm_tpu_torch.ops.features import fast as fast_ops
 from rtvm_tpu_torch.ops.features import orb as orb_ops
 from rtvm_tpu_torch.ops.features import sift as sift_ops
 from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch
+from rtvm_tpu_torch.utils import draw
 
 DEBUG_ARTIFACTS_NOT_PORTED = (
-    "the debug artifacts that output_dir with show_intermediate or visualize asks for "
-    "(mosaic_progress.jpg, matches.jpg) are not ported yet (ROADMAP.md, Queue 1 item 3); "
-    "pass output_dir=None, or show_intermediate=False and visualize=False"
+    "the matches.jpg debug artifact that output_dir with visualize asks for (render_matches) "
+    "is not ported yet (ROADMAP.md, Queue 1 item 3); pass visualize=False or output_dir=None"
 )
 
 
@@ -105,8 +107,6 @@ def state_from_numpy(snap: dict, device) -> MosaicState:
 def _check_config(cfg: MosaicConfig) -> None:
     if cfg.features.detector_type not in ("orb", "sift"):
         raise ValueError(f"unknown detector_type: {cfg.features.detector_type}")
-    if cfg.auto_grow:
-        raise NotImplementedError("auto_grow is not ported yet (a later slice of the PyTorch port)")
 
 
 def _extract_features(grays: torch.Tensor, cfg: MosaicConfig):
@@ -130,6 +130,17 @@ def _match_pairs(desc_q, valid_q, desc_t, valid_t, cfg: MosaicConfig) -> match_o
     return match_ops.match_l2_ratio(desc_q, valid_q, desc_t, valid_t, cfg.match.ratio)
 
 
+def _pair_seed(seed: int, frame: int) -> int:
+    """A 64-bit generator seed from (seed, frame), mixed by splitmix64 so that
+    every bit depends on both: the CPU generator keeps only the low 32 bits
+    of its seed."""
+    m = (1 << 64) - 1
+    z = (((int(seed) & 0xFFFFFFFF) << 32) | (int(frame) & 0xFFFFFFFF)) + 0x9E3779B97F4A7C15 & m
+    z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9 & m
+    z = (z ^ (z >> 27)) * 0x94D049BB133111EB & m
+    return z ^ (z >> 31)
+
+
 def pair_uniforms(seed: int, first_frame: int, b: int, cfg: MosaicConfig,
                   device: torch.device) -> torch.Tensor:
     """RANSAC draws [B, num_hypotheses, K] for pairs first_frame..first_frame+B-1,
@@ -138,7 +149,7 @@ def pair_uniforms(seed: int, first_frame: int, b: int, cfg: MosaicConfig,
     out = torch.empty((b, nh, k), dtype=torch.float32, device=device)
     for i in range(b):
         g = torch.Generator(device=device)
-        g.manual_seed(((int(seed) & 0x7FFFFFFF) << 32) | ((first_frame + i) & 0xFFFFFFFF))
+        g.manual_seed(_pair_seed(seed, first_frame + i))
         out[i] = torch.rand((nh, k), generator=g, device=device)
     return out
 
@@ -296,9 +307,11 @@ class VideMosaic:
 
     Frames are BGR uint8 arrays of a fixed shape (set by the first frame), or
     uint8 tensors already on the device. Runs on ``device`` (``cuda`` unless
-    the caller asks for another). The debug artifacts that the JAX class
-    writes when ``output_dir`` is set and ``show_intermediate`` or
-    ``visualize`` is on are not ported: that combination raises."""
+    the caller asks for another). With ``output_dir`` and
+    ``show_intermediate``, every fourth window writes
+    ``mosaic_progress.jpg`` there, as the JAX class does; the
+    ``matches.jpg`` that ``visualize`` adds is not ported, and
+    ``output_dir`` with ``visualize`` raises."""
 
     def __init__(
         self,
@@ -313,7 +326,7 @@ class VideMosaic:
         seed: int = 0,
         device=None,
     ):
-        if output_dir and (visualize or show_intermediate):
+        if output_dir and visualize:
             raise NotImplementedError(DEBUG_ARTIFACTS_NOT_PORTED)
         if config is None:
             config = MosaicConfig(
@@ -388,16 +401,97 @@ class VideMosaic:
 
     def process_window(self, frames, uniforms: Optional[torch.Tensor] = None) -> WindowAux:
         """Process a [B, H, W, 3] uint8 window of consecutive frames.
-        `uniforms` optionally gives the pairs' RANSAC draws (see make_step_body)."""
+        `uniforms` optionally gives the pairs' RANSAC draws (see make_step_body).
+        With auto_grow the canvas grows after the step when the window came
+        near an edge (``_maybe_grow``: one read of the window's H_abs)."""
+        frames = self._frames(frames)
         self.state, aux = self._step(
-            self.state, self._frames(frames), self.seed, self._fweight, self._wtable, uniforms
+            self.state, frames, self.seed, self._fweight, self._wtable, uniforms
         )
+        pad = (0, 0)
+        if self.config.auto_grow:
+            pad = self._maybe_grow(aux)
+        if self.output_dir and self.show_intermediate:
+            # a full-canvas read every fourth window, as the JAX class throttles it
+            self._windows_seen = getattr(self, "_windows_seen", 0) + 1
+            if self._windows_seen % 4 == 1:
+                self._dump_intermediate(frames, aux, pad)
         return aux
+
+    def _maybe_grow(self, aux: WindowAux) -> tuple:
+        """Grow the canvas when the window's warped frames, or the next
+        window's extrapolated from the last two frames' drift, come within
+        ``grow_margin`` px of an edge: pad it (and ``union_coarse``) by
+        multiples of ``grow_quantum`` px and shift H_old and the offsets to
+        the new origin. Reads H_abs and the blended flags once (one device
+        sync). Returns the (left, top) pad, (0, 0) without growth; aux.H_abs
+        stays in the canvas coordinates from before the pad."""
+        cfg = self.config
+        h, w = self.frame_shape[:2]
+        hc, wc, c = self.canvas_shape
+        b = aux.H_abs.shape[0]
+        host = torch.cat([aux.H_abs.reshape(b, 9), aux.blended.to(aux.H_abs.dtype)[:, None]],
+                         dim=1).cpu().numpy()
+        hs, blended = host[:, :9].reshape(b, 3, 3), host[:, 9] > 0
+        corners_src = np.array(
+            [[0.0, 0.0, 1.0], [w, 0.0, 1.0], [w, float(h), 1.0], [0.0, float(h), 1.0]]
+        ).T
+        xs_all, ys_all = [], []
+        for Hm, ok in zip(hs, blended):
+            if not ok:
+                continue
+            p = Hm.astype(np.float64) @ corners_src
+            den = p[2]
+            if np.any(den <= 1e-9):
+                continue
+            xs_all.append(p[0] / den)
+            ys_all.append(p[1] / den)
+        if not xs_all:
+            return (0, 0)
+        xs_f = np.concatenate(xs_all)
+        ys_f = np.concatenate(ys_all)
+        # look one window ahead: growth is checked after painting, so widen
+        # the extent on the motion side by the centroid's drift over a window
+        if len(xs_all) >= 2:
+            n_ahead = len(hs)
+            vx = float(np.mean(xs_all[-1]) - np.mean(xs_all[-2]))
+            vy = float(np.mean(ys_all[-1]) - np.mean(ys_all[-2]))
+            xs_f = np.concatenate([xs_f, xs_all[-1] + vx * n_ahead])
+            ys_f = np.concatenate([ys_f, ys_all[-1] + vy * n_ahead])
+        m, q = cfg.grow_margin, cfg.grow_quantum
+
+        def need(amount):
+            return int(np.ceil(max(amount, 0.0) / q) * q) if amount > 0 else 0
+
+        left = need(m - xs_f.min())
+        top = need(m - ys_f.min())
+        right = need(xs_f.max() - (wc - 1 - m))
+        bottom = need(ys_f.max() - (hc - 1 - m))
+        if not (left or top or right or bottom):
+            return (0, 0)
+        st = self.state
+        canvas = torch.nn.functional.pad(st.canvas, (left, right, top, bottom))
+        cell = warp_ops.CELL_PX
+        gh, gw = st.union_coarse.shape
+        union = torch.zeros((gh + (top + bottom) // cell, gw + (left + right) // cell),
+                            dtype=torch.bool, device=st.union_coarse.device)
+        union[top // cell : top // cell + gh, left // cell : left // cell + gw] = st.union_coarse
+        # shift @ H_old for the shift [[1, 0, left], [0, 1, top], [0, 0, 1]]
+        H = st.H_old
+        H_old = torch.stack([H[0] + left * H[2], H[1] + top * H[2], H[2]])
+        self.state = st._replace(canvas=canvas, union_coarse=union, H_old=H_old)
+        self.canvas_shape = (hc + top + bottom, wc + left + right, c)
+        self.w_offset += top
+        self.h_offset += left
+        return (left, top)
 
     def process_clip(self, windows, det_fn=None):
         """Process [W, B, H, Wd, 3] uint8 windows in one call (see
         make_clip_step). Returns the stacked WindowAux, or (aux, detections
-        as [W, B, ...]) when det_fn is given."""
+        as [W, B, ...]) when det_fn is given. As in the JAX class, the canvas
+        does not grow here and no progress image is written: a clip that may
+        leave the canvas goes through process_window, or gets a canvas sized
+        beforehand (mosaic/prescan.py)."""
         clip = self._clip if det_fn is None else make_clip_step(self.frame_shape, self.config,
                                                                 det_fn)
         self.state, *out = clip(self.state, self._frames(windows), self.seed, self._fweight,
@@ -422,6 +516,31 @@ class VideMosaic:
     @property
     def H_old(self) -> np.ndarray:
         return self.state.H_old.cpu().numpy()
+
+    def get_transformed_corners(self, frame, H) -> np.ndarray:
+        """[4, 2] corners (0,0), (w,0), (w,h), (0,h) of `frame` warped by H."""
+        h, w = frame.shape[:2]
+        return geo.transform_corners(w, h, torch.as_tensor(H, dtype=torch.float32).cpu()).numpy()
+
+    @staticmethod
+    def draw_border(image: np.ndarray, corners: np.ndarray, color=(0, 0, 0),
+                    thickness: int = 5) -> np.ndarray:
+        """Draw the warped frame's border polygon on the mosaic, in the JAX
+        class's closed-loop line order."""
+        c = np.asarray(corners).reshape(-1, 2).astype(int)
+        for i in range(c.shape[0] - 1, -1, -1):
+            draw.line(image, tuple(c[i]), tuple(c[i - 1]), color, thickness)
+        return image
+
+    def _dump_intermediate(self, frames, aux: WindowAux, pad=(0, 0)) -> None:
+        """mosaic_progress.jpg in output_dir: the canvas with the window's
+        last frame's border. `pad` is the (left, top) growth applied after
+        the step; aux.H_abs is in the canvas coordinates from before it."""
+        os.makedirs(self.output_dir, exist_ok=True)
+        img = self.output_img_u8.copy()
+        corners = self.get_transformed_corners(frames[-1], aux.H_abs[-1])
+        self.draw_border(img, corners + np.asarray(pad, corners.dtype))
+        imwrite_jpg(os.path.join(self.output_dir, "mosaic_progress.jpg"), img)
 
     def checkpoint(self) -> dict:
         """Snapshot of the full state as numpy arrays, with the JAX package's

@@ -38,7 +38,17 @@ def band_matrix(taps: np.ndarray, n: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def _band_tensor(taps_key: tuple, n: int, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(band_matrix(np.asarray(taps_key, np.float32), n)).to(device)
+    """band_matrix built on `device` itself: its float32 sums are the same,
+    in the same order, and no host-to-device copy waits for the device (a
+    canvas that grows meets new sizes mid-run)."""
+    r = (len(taps_key) - 1) // 2
+    b = torch.zeros((n, n), dtype=torch.float32, device=device)
+    rows = torch.arange(n, device=device)
+    for t, v in enumerate(taps_key):
+        cols = torch.clamp(rows + (t - r), 0, n - 1)
+        b.index_put_((rows, cols), torch.full((n,), v, dtype=torch.float32, device=device),
+                     accumulate=True)
+    return b
 
 
 def conv1d_edge(img: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:

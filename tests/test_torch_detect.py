@@ -267,8 +267,10 @@ def test_detector_surface_not_ported_raises(tmp_path):
     td = ObjectDetector("yolov8n", load_world=False, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         td.detect_objects(np.zeros((64, 64, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        td.draw_detections(np.zeros((64, 64, 3), np.uint8), [])
+    # draw_detections is ported now: with no detections it returns an unchanged copy
+    blank = np.zeros((64, 64, 3), np.uint8)
+    drawn = td.draw_detections(blank, [])
+    assert drawn is not blank and np.array_equal(drawn, blank)
     bad = tmp_path / "broken.npz"
     bad.write_bytes(b"not an npz")
     with pytest.raises(Exception):

@@ -256,7 +256,11 @@ mods = ["rtvm_tpu_torch", "rtvm_tpu_torch.config", "rtvm_tpu_torch.device",
         "rtvm_tpu_torch.entry", "rtvm_tpu_torch.detect.classes",
         "rtvm_tpu_torch.detect.detector", "rtvm_tpu_torch.utils.checkpoint",
         "rtvm_tpu_torch.models.yolo.modules", "rtvm_tpu_torch.models.yolo.model",
-        "rtvm_tpu_torch.models.yolo.convert", "rtvm_tpu_torch.models.yolo.postprocess"]
+        "rtvm_tpu_torch.models.yolo.convert", "rtvm_tpu_torch.models.yolo.postprocess",
+        "rtvm_tpu_torch.utils.timing", "rtvm_tpu_torch.utils.image", "rtvm_tpu_torch.utils.draw",
+        "rtvm_tpu_torch.io.jpeg", "rtvm_tpu_torch.io.video", "rtvm_tpu_torch.mosaic.prescan",
+        "rtvm_tpu_torch.pipelines.mosaic_pipeline", "rtvm_tpu_torch.cli",
+        "rtvm_tpu_torch.__main__"]
 for m in mods:
     importlib.import_module(m)
 py_compile.compile("chip_smoke.py", doraise=True)
@@ -266,11 +270,22 @@ print("OK", len(mods))
 """
 
 
+@pytest.mark.parametrize("n", [5, 240, 1280])
+def test_band_tensor_is_band_matrix_built_on_the_device(n):
+    """The blur's band matrices are built with device ops (a grown canvas
+    needs new sizes mid-run, and a host-to-device copy would wait for the
+    card); the float32 sums equal band_matrix's bit for bit."""
+    for sigma, radius in ((5.0, 15), (1.0, None), (2.0, None)):
+        taps = TF.gaussian_kernel1d(sigma, radius)
+        got = TF._band_tensor(tuple(float(t) for t in taps), n, torch.device("cpu"))
+        np.testing.assert_array_equal(got.numpy(), TF.band_matrix(taps, n))
+
+
 def test_port_imports_without_jax_cv2_or_reference_package():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_PROBE], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "OK 24"
+    assert proc.stdout.strip() == "OK 33"
 
 
 def test_default_device_is_cuda_and_never_falls_back():

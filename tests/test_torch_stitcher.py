@@ -428,10 +428,20 @@ def test_jax_style_positional_arguments_land_in_place(scene):
 
 @pytest.mark.parametrize("show_intermediate,visualize", [(True, False), (False, True)])
 def test_debug_artifacts_are_refused_not_ignored(scene, tmp_path, show_intermediate, visualize):
-    f0 = _orb_frames(scene, 1)[0]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        VideMosaic(f0, detector_type="orb", config=_orb_config(), show_intermediate=show_intermediate,
-                   visualize=visualize, output_dir=str(tmp_path), device="cpu")
+    frames = _orb_frames(scene, 3)
+    f0 = frames[0]
+    if visualize:  # matches.jpg (render_matches) is not ported
+        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+            VideMosaic(frames[0], detector_type="orb", config=_orb_config(),
+                       show_intermediate=show_intermediate, visualize=visualize,
+                       output_dir=str(tmp_path), device="cpu")
+    else:  # mosaic_progress.jpg is written, after the first window
+        m = VideMosaic(frames[0], detector_type="orb", config=_orb_config(),
+                       show_intermediate=show_intermediate, visualize=visualize,
+                       output_dir=str(tmp_path), device="cpu")
+        m.process_window(np.stack(frames[1:]))
+        img = cv2.imread(str(tmp_path / "mosaic_progress.jpg"))
+        assert img is not None and img.shape == m.output_img_u8.shape
     # no output_dir, or nothing asked of it: no artifacts to write, no error
     VideMosaic(f0, detector_type="orb", config=_orb_config(), show_intermediate=show_intermediate,
                visualize=visualize, device="cpu")
@@ -477,3 +487,18 @@ def test_port_entry_runs_on_cpu():
     assert tuple(aux.H_abs.shape) == (2, 3, 3) and bool(torch.isfinite(aux.H_abs).all())
     assert tuple(state.desc.shape) == (128, 8) and state.desc.dtype == torch.int32
     assert int(state.frame_idx) == 3 and tuple(state.canvas.shape) == (3, 256, 307)
+
+
+def test_ransac_draws_depend_on_the_seed_and_the_frame_only():
+    """Pair f draws from (seed, f): another seed gives other draws on the CPU
+    too (whose generator keeps only the low 32 bits of its seed), and a pair
+    draws the same whichever window it falls in."""
+    from rtvm_tpu_torch.mosaic.stitcher import pair_uniforms
+
+    cfg, cpu = TMosaicConfig(window_size=4), torch.device("cpu")
+    a, b = pair_uniforms(0, 5, 3, cfg, cpu), pair_uniforms(1, 5, 3, cfg, cpu)
+    assert tuple(a.shape) == (3, cfg.ransac.num_hypotheses, cfg.features.max_keypoints)
+    assert all(not torch.equal(a[i], b[i]) for i in range(3))
+    assert not torch.equal(a[0], a[1])
+    torch.testing.assert_close(pair_uniforms(0, 6, 1, cfg, cpu)[0], a[1], rtol=0, atol=0)
+    assert float(a.min()) >= 0.0 and float(a.max()) < 1.0
