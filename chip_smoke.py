@@ -6,7 +6,8 @@
 Phases, each printed with its result and seconds on its own line:
   1. setup: the card's name and power limit (nvidia-smi), torch and CUDA versions;
   2. build: the CUDA kernels (csrc/*.cu -> one nvcc call -> ctypes), with
-     each kernel's registers, shared memory and spills from ptxas;
+     each kernel's registers, shared memory and spills from ptxas, and
+     alongside it the host C++ (csrc_host/*.cpp -> one g++ call -> ctypes);
   3. kernel A (the warp) against its plain PyTorch version on four fixed maps;
   4. kernel B (the SIFT patch copy) against its plain version on random
      origins at every octave shape, then timed on the origins the SIFT stages
@@ -39,7 +40,16 @@ Phases, each printed with its result and seconds on its own line:
      loop (at most one device sync a window) and through the fused path on a
      pre-scanned canvas; the known camera path in the grown or pre-scanned
      canvas's coordinates, and kernel A against its plain version on it;
- 10. kernel A against its plain version on the maps of a window of the SIFT
+ 10. the detection on the mosaic and the navigation map (phase `navigate`,
+     BASELINE config 4): the CLI's `mosaic <clip.npy> --detector sift
+     --window 16` with its defaults, on a third clip drifting as `grow`'s
+     does (auto_grow=True through PipelineConfig) over a world with gray
+     roofs and bright blobs: launches, YOLOv8n-world loaded, at least 2
+     tiles, a classical building, a native A* call, the five JPEGs and
+     their sizes, each detection pass against the port's float32 run on the
+     CPU, nav_blocked against the CPU's; the stage times (first call and
+     warm) and peak memory;
+ 11. kernel A against its plain version on the maps of a window of the SIFT
      run, and timed through warp_batch on them;
 then one JSON line of per-kernel numbers, the elapsed time, and as the last
 line {"ok": true, "device": {...}}. Any failed check exits non-zero. Without
@@ -50,6 +60,7 @@ Imports torch, numpy and rtvm_tpu_torch only.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -57,6 +68,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -912,6 +924,272 @@ def phase_grow(torch, dev, tmp: str, card: str) -> dict:
     return counts
 
 
+NAV_WORLD_NPZ = "weights/yolov8n_world.npz"
+NAV_OUTPUTS = ("mosaic.jpg", "mosaic_progress.jpg", "debug_watershed.jpg", "debug_texture_mask.jpg",
+               "navigation_map.jpg")
+# the detection on the mosaic on the card against the port's float32 run on
+# the CPU: the world model and the classical masks run in float32 on both, so
+# (least share matched at IoU >= 0.9 with the same class, largest score gap);
+# the closed-set tile pass is bf16 on the card: DET_BOUNDS["bfloat16"]
+NAV_WORLD_MATCH = (0.99, 1e-3)
+NAV_CLASSICAL_MATCH = (0.9, 0.05)  # the classical detectors: masks at float thresholds
+NAV_MIN_EQUAL = 0.999  # nav_blocked, card against CPU
+
+
+def make_nav_world(rng: np.random.RandomState, h: int, w: int) -> np.ndarray:
+    """A BGR uint8 world for the navigation map: low-frequency ground,
+    sparse coloured rectangles (corners for SIFT, edges for the texture
+    mask), flat gray roofs (for the classical building detector and the
+    routes) and bright car-sized blobs (for the vehicle detector)."""
+    coarse = rng.uniform(0, 255, (h // 16 + 2, w // 16 + 2, 3))
+    coarse = np.repeat(np.repeat(coarse, 16, 0), 16, 1)[:h, :w]
+    img = _blur_axis(_blur_axis(coarse, 6.0, 0), 6.0, 1) * 0.5 + 60
+    for _ in range(h * w // 2500):
+        y, x = rng.randint(0, h - 8), rng.randint(0, w - 8)
+        img[y : y + rng.randint(6, 30), x : x + rng.randint(6, 30)] = rng.uniform(0, 255, 3)
+    for _ in range(8):  # gray roofs
+        y, x = rng.randint(0, h - 120), rng.randint(0, w - 90)
+        img[y : y + rng.randint(45, 80), x : x + rng.randint(45, 80)] = rng.uniform(110, 190)
+    for _ in range(10):  # bright blobs
+        y, x = rng.randint(0, h - 30), rng.randint(0, w - 30)
+        img[y : y + rng.randint(10, 20), x : x + rng.randint(14, 26)] = (235, 235, 240)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+class _Patches:
+    """Attribute replacements undone in reverse order."""
+
+    def __init__(self):
+        self.saved = []
+
+    def set(self, obj, name, value):
+        self.saved.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    def undo(self):
+        for obj, name, value in reversed(self.saved):
+            setattr(obj, name, value)
+        self.saved = []
+
+
+def _sync(torch) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _record_detection(torch, patches: _Patches, rec: dict) -> None:
+    """Times each part of ObjectDetector.detect_objects (the card
+    synchronized before and after) and keeps its result: rec[part] is a list
+    of (seconds, result). Parts: world (the full image with flip TTA), clahe
+    (the enhancement) and clahe_world (its pass), tiles_world and
+    tiles_closed (the tile batch through both models), buildings and
+    vehicles (the classical detectors), detect_objects (the whole; its
+    detector and image in rec["args"])."""
+    import rtvm_tpu_torch.detect.detector as dmod
+    from rtvm_tpu_torch.models.yolo.world import YoloWorldDetector
+
+    def timed(name, fn):
+        def run(*a, **k):
+            _sync(torch)
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            _sync(torch)
+            # a copy: detect_objects goes on to move and rescale the dicts
+            rec.setdefault(name, []).append((time.perf_counter() - t, copy.deepcopy(out)))
+            return out
+        return run
+
+    predict = YoloWorldDetector.predict
+
+    def world_predict(self, image, **k):
+        return timed("world" if k.get("augment") else "clahe_world", predict)(self, image, **k)
+
+    detect_objects = dmod.ObjectDetector.detect_objects
+
+    def whole(self, image, **k):
+        rec.setdefault("args", []).append((self, image))
+        return timed("detect_objects", detect_objects)(self, image, **k)
+
+    patches.set(YoloWorldDetector, "predict", world_predict)
+    patches.set(YoloWorldDetector, "predict_batch",
+                timed("tiles_world", YoloWorldDetector.predict_batch))
+    patches.set(dmod.ObjectDetector, "_run_pass", timed("tiles_closed", dmod.ObjectDetector._run_pass))
+    patches.set(dmod.ObjectDetector, "detect_objects", whole)
+    patches.set(dmod, "enhance_for_detection", timed("clahe", dmod.enhance_for_detection))
+    patches.set(dmod, "detect_buildings_classical", timed("buildings", dmod.detect_buildings_classical))
+    patches.set(dmod, "detect_vehicles_classical", timed("vehicles", dmod.detect_vehicles_classical))
+
+
+def _dict_share(want: list, got: list, iou_min: float, gap: float) -> float:
+    """The smaller of the two lists' shares of detections that the other
+    has with the same class at IoU >= iou_min and a score gap <= gap."""
+    def iou(a, b):
+        ix1, iy1, ix2, iy2 = max(a[0], b[0]), max(a[1], b[1]), min(a[2], b[2]), min(a[3], b[3])
+        inter = max(ix2 - ix1, 0) * max(iy2 - iy1, 0)
+        return inter / max((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter,
+                           1e-9)
+
+    def share(x, y):
+        if not x:
+            return 1.0
+        return sum(any(d["class"] == e["class"] and iou(d["bbox"], e["bbox"]) >= iou_min
+                       and abs(d["confidence"] - e["confidence"]) <= gap for e in y)
+                   for d in x) / len(x)
+
+    return min(share(want, got), share(got, want))
+
+
+def _part_ms(rec: dict, part: str, i: int = 0) -> float:
+    return rec[part][i][0] * 1e3 if part in rec and len(rec[part]) > i else 0.0
+
+
+def phase_navigate(torch, dev, tmp: str, card: str) -> dict:
+    """BASELINE config 4: the CLI's mosaic command with its defaults (the
+    detection on the mosaic and the navigation map) on a clip that grows the
+    canvas past 800 px, so that the tile pass runs. Returns the kernels'
+    launch counts."""
+    import dataclasses
+
+    import rtvm_tpu_torch.config as config_mod
+    import rtvm_tpu_torch.mosaic.stitcher as stitcher_mod
+    from rtvm_tpu_torch import cli, kernels
+    from rtvm_tpu_torch.detect.detector import ObjectDetector
+    from rtvm_tpu_torch.navigate import native
+    from rtvm_tpu_torch.navigate.mapping import analyze_for_navigation
+    from rtvm_tpu_torch.navigate.obstacles import build_obstacle_masks
+    from rtvm_tpu_torch.pipelines import mosaic_pipeline
+
+    t0 = time.time()
+    check(os.path.exists(NAV_WORLD_NPZ), f"navigate: {NAV_WORLD_NPZ} is not in this checkout")
+    n = N_WINDOWS * WINDOW
+    path = camera_path(n + 1, GROW_STEP)
+    world = make_nav_world(np.random.RandomState(SEED + 2), FRAME_H + int(path[:, 1].max()) + 8,
+                           FRAME_W + int(path[:, 0].max()) + 8)
+    frames = np.stack([world[y : y + FRAME_H, x : x + FRAME_W] for x, y in path])
+    clip = os.path.join(tmp, "navigate.npy")
+    np.save(clip, frames)
+    out = os.path.join(tmp, "navigate_out")
+    argv = ["mosaic", clip, "--output-dir", out, "--detector", "sift", "--window", str(WINDOW)]
+
+    rec, timers, progress = {}, [], []
+    patches = _Patches()
+    real_cfg, real_timer, real_jpg = (config_mod.PipelineConfig, mosaic_pipeline.StageTimer,
+                                      stitcher_mod.imwrite_jpg)
+
+    def pipeline_config(mosaic, **k):  # auto_grow through the CLI's PipelineConfig
+        return real_cfg(mosaic=dataclasses.replace(mosaic, auto_grow=True), **k)
+
+    def timer(*a, **k):
+        timers.append(real_timer(*a, **k))
+        return timers[-1]
+
+    def progress_jpg(p, img, *a, **k):
+        progress.append(img.shape[:2])
+        return real_jpg(p, img, *a, **k)
+
+    patches.set(config_mod, "PipelineConfig", pipeline_config)
+    patches.set(mosaic_pipeline, "StageTimer", timer)
+    patches.set(stitcher_mod, "imwrite_jpg", progress_jpg)
+    _record_detection(torch, patches, rec)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        native.calls["astar"] = 0
+        t = time.time()
+        m, stats = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        counts, astar_calls = dict(kernels.launches), native.calls["astar"]
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        patches.undo()
+    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1}
+    check(counts == want, f"navigate: launch counts {counts}, expected {want}")
+    check(m.device.type == "cuda" and m.config.auto_grow, f"navigate: {m.device}, {m.config}")
+    check(stats["frames"] == n + 1 and stats["accepted"] >= MIN_ACCEPTED, f"navigate: stats {stats}")
+    check(m.canvas_shape[1] > int(1.2 * FRAME_W), f"navigate: canvas {m.canvas_shape} did not grow")
+    (det, image), = rec["args"]
+    (_, dets), = rec["detect_objects"]
+    check(det.model_world is not None and det.model_world.is_open_vocab
+          and os.path.samefile(det.model_world.weights_source, NAV_WORLD_NPZ),
+          f"navigate: the world model is {det.model_world and det.model_world.weights_source}")
+    check(max(image.shape[:2]) > 800, f"navigate: mosaic {image.shape}, no tiles")
+    n_tiles = len(rec["tiles_world"][0][1])
+    check(n_tiles >= 2 and len(rec["tiles_closed"][0][1]) == n_tiles, f"navigate: {n_tiles} tiles")
+    n_build = sum(d["class"] == "building" and d.get("source") == "classical" for d in dets)
+    check(n_build >= 1, "navigate: no classical building on the mosaic")
+    check(astar_calls >= 1, "navigate: the native A* router was not called")
+    check(stats["detections"] == len(dets), f"navigate: stats {stats}, {len(dets)} detections")
+    dims = {f: jpeg_dims(os.path.join(out, f)) for f in NAV_OUTPUTS}
+    for f in NAV_OUTPUTS:
+        want_dims = progress[-1] if f == "mosaic_progress.jpg" else image.shape[:2]
+        check(dims[f] == tuple(want_dims), f"navigate: {f} is {dims[f]}, expected {want_dims}")
+
+    # the same image on the card again (warm), then on the CPU in float32
+    again = {}
+    _record_detection(torch, patches, again)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        det.detect_objects(image)
+        det_peak = torch.cuda.max_memory_allocated()
+        ref = ObjectDetector("yolo11n", device="cpu")
+        ref._infer_fn = lambda imgsz, conf, iou: ObjectDetector._infer_fn(ref, imgsz, conf, iou,
+                                                                         torch.float32)
+        cpu = {}
+        patches.undo()
+        _record_detection(torch, patches, cpu)
+        ref.detect_objects(image)
+    finally:
+        patches.undo()
+    _, bf_share, bf_gap = DET_BOUNDS["bfloat16"]
+    agree, failed = {}, []
+    for part, (smin, g) in (("world", NAV_WORLD_MATCH), ("clahe_world", NAV_WORLD_MATCH),
+                            ("tiles_world", NAV_WORLD_MATCH), ("tiles_closed", (bf_share, bf_gap)),
+                            ("buildings", NAV_CLASSICAL_MATCH), ("vehicles", NAV_CLASSICAL_MATCH)):
+        a, b = rec[part][0][1], cpu[part][0][1]
+        if part.startswith("tiles"):
+            a, b = sum(a, []), sum(b, [])
+        agree[part] = (_dict_share(b, a, 0.9, g), len(a), len(b))
+        if agree[part][0] < smin:
+            failed.append(f"{part} {agree[part]}")
+    check(not failed, f"navigate: card against the CPU float32 run: " + ", ".join(failed))
+    w_card, nav_card = build_obstacle_masks(image, dets, device=dev)
+    w_cpu, nav_cpu = build_obstacle_masks(image, dets, device="cpu")
+    nav_equal = float((nav_card == nav_cpu).mean())
+    w_err = float(np.abs(w_card - w_cpu).max())
+    check(nav_equal >= NAV_MIN_EQUAL and w_err <= 1e-6,
+          f"navigate: nav_blocked equal on {nav_equal:.6f}, weights off by {w_err}")
+    t = time.perf_counter()
+    analyze_for_navigation(image, dets, device=dev)
+    nav_warm = (time.perf_counter() - t) * 1e3
+
+    tm = timers[0]
+    stage = {k: tm.totals.get(k, 0.0) * 1e3 for k in ("window", "mosaic_jpg", "detect_init",
+                                                       "detect_mosaic", "navigate", "navigation_jpg")}
+    parts = ("world", "clahe", "clahe_world", "tiles_world", "tiles_closed", "buildings", "vehicles",
+             "detect_objects")
+    phase("navigate", t0,
+          f"{stats['frames']} frames, {stats['accepted']} accepted, canvas {m.canvas_shape[:2]}, "
+          f"launches {counts}; mosaic {image.shape[:2]}, {n_tiles} tiles, {len(dets)} detections "
+          f"({n_build} classical buildings), native A* calls {astar_calls}; outputs "
+          + ", ".join(f"{f} {dims[f]}" for f in NAV_OUTPUTS)
+          + f"; wall {wall:.3f} s; stages ms: " + ", ".join(f"{k} {v:.1f}" for k, v in stage.items())
+          + "; detect_mosaic parts ms (first call / warm): "
+          + ", ".join(f"{p} {_part_ms(rec, p):.1f}/{_part_ms(again, p):.1f}" for p in parts)
+          + f"; navigate warm {nav_warm:.1f} ms; peak {peak / 2**20:.1f} MiB allocated over the "
+          f"run, {det_peak / 2**20:.1f} MiB in detect_objects; card against CPU float32 "
+          "(share, card, CPU): " + ", ".join(f"{k} ({v[0]:.4f}, {v[1]}, {v[2]})"
+                                            for k, v in agree.items())
+          + f"; nav_blocked equal on {nav_equal:.6f}, weights max |d| {w_err:.1e}; on {card}")
+    return counts
+
+
+def _timed_build(build):
+    t = time.time()
+    return build(), time.time() - t
+
+
 def main() -> int:
     try:
         import torch
@@ -924,6 +1202,7 @@ def main() -> int:
     try:
         import rtvm_tpu_torch  # noqa: F401
         from rtvm_tpu_torch import kernels
+        from rtvm_tpu_torch.navigate import native
     except ImportError as e:
         print(f"chip_smoke: the rtvm_tpu_torch package is not here: {e}", file=sys.stderr)
         return 3
@@ -941,13 +1220,18 @@ def main() -> int:
                            f"CUDA {torch.version.cuda}; {torch.cuda.device_count()} device(s)")
 
         t0 = time.time()
-        path = kernels.build()
+        with ThreadPoolExecutor(1) as pool:  # the host C++ (g++) while nvcc builds the kernels
+            host = pool.submit(_timed_build, native.build)
+            path = kernels.build()
+            host_path, host_s = host.result()
         kernels.library()
+        native.library()
         regs = kernels.ptxas_summary(kernels.build_log())
         phase("build", t0, f"{path.name}; " + ("; ".join(
             f"{k}: {v['registers']} registers, {v['smem']} B static smem, {v['stack']} B stack, "
             f"spills {v['spill_stores']}/{v['spill_loads']} B" for k, v in sorted(regs.items()))
-            or "no ptxas report in the build log"))
+            or "no ptxas report in the build log")
+            + f"; host C++ {host_path.name} in {host_s:.2f} s alongside")
 
         frames, cam = make_clip(np.random.RandomState(SEED), 1 + N_WINDOWS * WINDOW, FRAME_H, FRAME_W)
         hc, wc = 2 * FRAME_H, int(1.2 * FRAME_W)
@@ -973,6 +1257,7 @@ def main() -> int:
                                                  det["yolo11n"])
             by_path["pipeline_fused"] = phase_pipeline_fused(torch, clip, card, det["yolo11n"])
             by_path["grow"] = phase_grow(torch, dev, tmp, card)
+            by_path["navigate"] = phase_navigate(torch, dev, tmp, card)
         row_a = warp_real(torch, dev, frames[1 : 1 + WINDOW], sift_auxs[0].H_abs, hc, wc)
         for row, key in ((row_a, "warp"), (row_b, "patches")):
             row["launches_by_path"] = {p: c[key] for p, c in by_path.items()}

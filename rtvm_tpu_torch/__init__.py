@@ -1,12 +1,17 @@
 """rtvm_tpu_torch — the PyTorch/CUDA port of rtvm_tpu, one slice at a time.
 
-The port covers the window step of the streaming mosaic stitcher
-(``mosaic.stitcher.VideMosaic``) with either detector, SIFT or ORB, and the
-per-frame YOLO detection that ``process_clip(det_fn=...)`` runs after the
-stitch (``detect.detector.ObjectDetector``, ``models.yolo``). The two
-kernels the JAX package wrote in Pallas for the TPU are hand-written CUDA here
-(``csrc/warp.cu``, ``csrc/patches.cu``), built with ``nvcc`` at first use and
-loaded with ctypes (``kernels.py``). Everything else is plain PyTorch.
+The port covers the streaming mosaic stitcher (``mosaic.stitcher.VideMosaic``)
+with either detector, SIFT or ORB, the per-frame YOLO detection that
+``process_clip(det_fn=...)`` runs after the stitch
+(``detect.detector.ObjectDetector``, ``models.yolo``), the pipeline driver
+(``pipelines.mosaic_pipeline``, ``cli``), the detection on the mosaic (the
+open-vocabulary ``models.yolo.world``, CLAHE, tiles, ``detect.classical``) and
+the navigation map (``navigate``). The two kernels the JAX package wrote in
+Pallas for the TPU are hand-written CUDA here (``csrc/warp.cu``,
+``csrc/patches.cu``), built with ``nvcc`` at first use and loaded with ctypes
+(``kernels.py``). The host algorithms the JAX package borrows from cv2 and its
+A* router are C++ in ``csrc_host/`` (``navigate/native.py``). Everything else
+is plain PyTorch.
 
 The package imports neither ``jax`` nor anything of ``rtvm_tpu``. Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``; without a card and

@@ -7,11 +7,10 @@
 The flags are the JAX CLI's, and as there a bare clip path means ``mosaic``.
 The clip is a video file (decoded with cv2, where it is installed), a
 ``.npy`` file of uint8 frames [N, H, W, 3], or a directory of images
-(``--images-dir``, not ported). It runs on ``cuda``. The mosaic on the port
-needs ``--no-detect --no-nav`` for now: the detection on the mosaic and the
-navigation map are not ported (ROADMAP.md, Queue 1 items 5 and 6), and
-asking for them raises NotImplementedError. The other subcommands of the JAX
-CLI exist and raise NotImplementedError (Queue 1 item 6).
+(``--images-dir``, not ported). It runs on ``cuda``. By default the mosaic
+command also detects objects on the mosaic and writes the navigation map;
+``--no-detect`` and ``--no-nav`` leave them out. The other subcommands of
+the JAX CLI exist and raise NotImplementedError (ROADMAP.md, Queue 1 item 6).
 """
 
 from __future__ import annotations

@@ -1,19 +1,25 @@
-"""Per-frame YOLO detection (counterpart of ``rtvm_tpu/detect/detector.py``:
-the closed-set detector, its checkpoint search, the batched inference
-function and the person pass).
+"""Object detection (counterpart of ``rtvm_tpu/detect/detector.py``): the
+closed-set YOLO detector with its checkpoint search and batched inference,
+the open-vocabulary companion (``models/yolo/world.py``) that
+``load_world=True`` loads, the person pass, and ``detect_objects``, the
+multi-pass detection on the mosaic.
 
 Inference is the JAX package's: letterbox -> model -> decode -> NMS ->
 un-letterbox, batched over whatever frames a call gets. ``_infer_fn`` runs
 the model in bfloat16 by default, as the JAX detector does (every weight and
 the input cast to bf16, the logits cast back to float32 for decode and NMS);
-``dtype=torch.float32`` runs it in float32.
+``dtype=torch.float32`` runs it in float32. The open-vocabulary model runs in
+float32, as JAX runs it.
 
-``draw_detections`` draws with ``utils/draw.py`` in place of cv2.
+``detect_objects`` keeps the image on the detector's device for the three
+passes (the world model at 1280 with flip TTA, the CLAHE-enhanced image,
+640-px tiles through both models), and for the classical detectors' masks;
+each pass reads its detections back in one copy, and the deduplication and
+filters run on the host.
 
-Not ported yet (ROADMAP.md, Queue 1 item 5): ``detect_objects`` (CLAHE,
-the classical detectors, the open-vocabulary model), the ultralytics ``.pt``
-route of the constructor, and the open-vocabulary companion that
-``load_world=True`` loads. Each raises NotImplementedError.
+``draw_detections`` draws with ``utils/draw.py`` in place of cv2. The
+ultralytics ``.pt`` route of the constructor is not ported: it raises
+NotImplementedError (ROADMAP.md, Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -25,12 +31,15 @@ from typing import Callable, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from rtvm_tpu_torch.detect import classes as C
+from rtvm_tpu_torch.detect.classical import detect_buildings_classical, detect_vehicles_classical
 from rtvm_tpu_torch.device import resolve_device
 from rtvm_tpu_torch.models.yolo import postprocess as pp
 from rtvm_tpu_torch.models.yolo.convert import flax_to_state_dict
 from rtvm_tpu_torch.models.yolo.model import build_yolo
+from rtvm_tpu_torch.ops.clahe import enhance_for_detection
 from rtvm_tpu_torch.utils import draw
 from rtvm_tpu_torch.utils.checkpoint import load_pytree_npz
 
@@ -39,8 +48,27 @@ _REPO_WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 _WEIGHT_SEARCH_PATHS = [".", "weights", _REPO_WEIGHTS]
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1 item 5)")
+def _iou(a, b) -> float:
+    ix1, iy1 = max(a[0], b[0]), max(a[1], b[1])
+    ix2, iy2 = min(a[2], b[2]), min(a[3], b[3])
+    inter = max(ix2 - ix1, 0) * max(iy2 - iy1, 0)
+    ua = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
+    return inter / max(ua, 1e-9)
+
+
+def _center_dist(a, b) -> float:
+    ax, ay = (a[0] + a[2]) / 2, (a[1] + a[3]) / 2
+    bx, by = (b[0] + b[2]) / 2, (b[1] + b[3]) / 2
+    return float(np.hypot(ax - bx, ay - by))
+
+
+def tile_starts(dim: int, win: int = 640, stride: int = 400) -> List[int]:
+    """Tile origins along one side: every `stride` px, plus a last tile
+    anchored at dim - win so that every pixel is tiled."""
+    xs = list(range(0, max(dim - win, 0) + 1, stride))
+    if xs[-1] != max(dim - win, 0):
+        xs.append(max(dim - win, 0))
+    return xs
 
 
 class ObjectDetector:
@@ -53,12 +81,16 @@ class ObjectDetector:
     ``{model}.pt`` found there), which raises NotImplementedError. A
     checkpoint that fails to load raises. With none found the model keeps
     random weights drawn from `seed` and ``num_classes`` classes, as the JAX
-    class does (``weights_loaded`` False, ``weights_source`` "random")."""
+    class does (``weights_loaded`` False, ``weights_source`` "random").
+
+    ``load_world=True`` also builds the open-vocabulary companion
+    ``model_world`` (YOLOv8n-world over ``AERIAL_CLASSES``) when its
+    checkpoint ``yolov8n_world.npz`` is found; without it ``model_world`` is
+    None, as in the JAX class. A world checkpoint that fails to load raises
+    (the JAX class prints a warning and goes on without it)."""
 
     def __init__(self, model: str = "yolov8n", weights_path: Optional[str] = None,
                  num_classes: int = 80, seed: int = 0, load_world: bool = True, device=None):
-        if load_world:
-            raise _not_ported("the open-vocabulary companion (load_world=True)")
         self.device = resolve_device(device)
         self.model_name = model
         self.model_world = None
@@ -82,12 +114,20 @@ class ObjectDetector:
         else:
             pt = weights_path or self._find_weights(model, ".pt")
             if pt:
-                raise _not_ported(f"loading an ultralytics checkpoint ({pt})")
+                raise NotImplementedError(f"loading an ultralytics checkpoint ({pt}) is not "
+                                          "ported yet (ROADMAP.md, Queue 1 item 5)")
             self.model = build_yolo(model, num_classes=num_classes, seed=seed, device=self.device)
             self.class_names = (C.COCO_CLASSES if num_classes == 80
                                 else [str(i) for i in range(num_classes)])
         self._models = {torch.float32: self.model}
         self._infer_cache = {}
+        if load_world:
+            from rtvm_tpu_torch.models.yolo.world import YoloWorldDetector
+
+            w = YoloWorldDetector(base_detector=self, classes=C.AERIAL_CLASSES,
+                                  device=self.device)
+            if w.is_open_vocab:
+                self.model_world = w
 
     @staticmethod
     def _find_weights(model: str, ext: str = ".pt", suffix: str = "") -> Optional[str]:
@@ -156,9 +196,101 @@ class ObjectDetector:
         dets = self._run_pass(self._frames(frame)[None], imgsz=640, conf=0.5, iou=0.45)[0]
         return [[int(v) for v in d["bbox"]] for d in dets if d["class"] == "person"]
 
-    def detect_objects(self, image, window_threshold: int = 800, debug_dir=None):
-        raise _not_ported("detect_objects (multi-pass detection with CLAHE, tiles and the "
-                          "classical detectors)")
+    def detect_objects(self, image, window_threshold: int = 800,
+                       debug_dir: Optional[str] = None) -> List[dict]:
+        """Multi-pass detection on a [H, W, 3] BGR uint8 image (numpy or a
+        tensor) with dedup and filters, then the classical detectors merged
+        in; debug_dir receives debug_watershed.jpg from the classical stage."""
+        img = self._frames(image)
+        h, w = img.shape[:2]
+
+        # pass (a): the full image at a large size and a low confidence; the
+        # open-vocabulary model, when loaded, with flip TTA
+        all_dets: List[dict] = []
+        if self.model_world is not None:
+            all_dets += self.model_world.predict(img, conf=0.02, iou=0.5, augment=True)
+        else:
+            all_dets += self._run_pass(img[None], imgsz=1280, conf=0.02, iou=0.5)[0]
+
+        # pass (b): the CLAHE-enhanced image (truncated to uint8)
+        enhanced = enhance_for_detection(img).to(torch.uint8)
+        if self.model_world is not None:
+            all_dets += self.model_world.predict(enhanced, conf=0.02, iou=0.5)
+        else:
+            all_dets += self._run_pass(enhanced[None], imgsz=1280, conf=0.02, iou=0.5)[0]
+
+        # pass (c): 640-px tiles of a large image, the last one anchored at
+        # dim - 640, through the world model and the closed-set model (whose
+        # detections come second, so the world's win the dedup's ties)
+        if max(h, w) > window_threshold:
+            win = 640
+            offsets = [(x0, y0) for y0 in tile_starts(h, win) for x0 in tile_starts(w, win)]
+            ph, pw = max(win - h, 0), max(win - w, 0)
+            src = F.pad(img, (0, 0, 0, pw, 0, ph)) if (ph or pw) else img
+            tile_batch = torch.stack([src[y0 : y0 + win, x0 : x0 + win] for x0, y0 in offsets])
+            if self.model_world is not None:
+                per_tile = self.model_world.predict_batch(tile_batch, conf=0.03, iou=0.5)
+                per_tile_cs = self._run_pass(tile_batch, imgsz=640, conf=0.03, iou=0.5)
+                per_tile = [a + b for a, b in zip(per_tile, per_tile_cs)]
+            else:
+                per_tile = self._run_pass(tile_batch, imgsz=640, conf=0.03, iou=0.5)
+            for dets, (x0, y0) in zip(per_tile, offsets):
+                for d in dets:
+                    b = d["bbox"]
+                    d["bbox"] = [b[0] + x0, b[1] + y0, b[2] + x0, b[3] + y0]
+                    d["confidence"] *= 0.9
+                    all_dets.append(d)
+
+        deduped = self._dedup(all_dets, center_px=40.0, iou_th=0.5)
+        filtered = self._area_filter(deduped, h, w)
+
+        # the classical detectors, merged with a tighter dedup
+        dbg = os.path.join(debug_dir, "debug_watershed.jpg") if debug_dir else None
+        classical = detect_buildings_classical(img, debug_path=dbg) + detect_vehicles_classical(img)
+        for cd in classical:
+            if not any(_iou(cd["bbox"], d["bbox"]) > 0.3 or _center_dist(cd["bbox"], d["bbox"]) < 25
+                       for d in filtered):
+                filtered.append(cd)
+        return filtered
+
+    @staticmethod
+    def _dedup(dets: List[dict], center_px: float, iou_th: float) -> List[dict]:
+        """Keep the highest-confidence instance among same-class near-duplicates."""
+        kept: List[dict] = []
+        for d in sorted(dets, key=lambda x: -x["confidence"]):
+            dup = any(
+                (d["class"] == k["class"])
+                and (_center_dist(d["bbox"], k["bbox"]) < center_px
+                     or _iou(d["bbox"], k["bbox"]) > iou_th)
+                for k in kept
+            )
+            if not dup:
+                kept.append(d)
+        return kept
+
+    @staticmethod
+    def _area_filter(dets: List[dict], h: int, w: int) -> List[dict]:
+        """Area and size filters: at most 15% of the image; buildings at least
+        200 px^2 with sides of 25 and 40; persons 36 px^2; others 80 px^2."""
+        out = []
+        max_area = 0.15 * h * w
+        for d in dets:
+            x1, y1, x2, y2 = d["bbox"]
+            bw, bh = x2 - x1, y2 - y1
+            area = bw * bh
+            if area > max_area or area <= 0:
+                continue
+            if d["class"] == "building":
+                if area < 200 or min(bw, bh) < 25 or max(bw, bh) < 40:
+                    continue
+            elif d["class"] == "person":
+                if area < 36:
+                    continue
+            else:
+                if area < 80:
+                    continue
+            out.append(d)
+        return out
 
     @staticmethod
     def draw_detections(image: np.ndarray, dets: List[dict]) -> np.ndarray:

@@ -5,8 +5,11 @@ The port's modules carry Flax's names (see ``modules.py``), so a leaf path
 ``C2f_0.Bottleneck_0.ConvBnSiLU_0.Conv_0.weight``: the collection
 (``params`` or ``batch_stats``) is dropped, ``/`` becomes ``.``, and only a
 convolution's ``kernel`` is renamed ``weight`` and moved from Flax's HWIO to
-PyTorch's OIHW (a depthwise ``(kh, kw, 1, C)`` becomes ``(C, 1, kh, kw)``).
-BatchNorm's ``scale``, ``bias``, ``mean`` and ``var`` keep their names.
+PyTorch's OIHW (a depthwise ``(kh, kw, 1, C)`` becomes ``(C, 1, kh, kw)``),
+a ``Dense`` kernel from ``(in, out)`` to ``nn.Linear``'s ``(out, in)``.
+BatchNorm's ``scale``, ``bias``, ``mean`` and ``var``, an ``Embed``'s
+``embedding`` (``[V, D]``) and the open-vocabulary head's 0-dim
+``logit_scale`` and ``logit_bias`` keep their names and shapes.
 """
 
 from __future__ import annotations
@@ -54,20 +57,27 @@ def flax_to_torch(tree: Mapping) -> Dict[str, torch.Tensor]:
         key, is_kernel = state_dict_key(path)
         a = np.asarray(leaf, dtype=np.float32)
         if is_kernel:
-            a = a.transpose(3, 2, 0, 1)
-        sd[key] = torch.from_numpy(np.ascontiguousarray(a))
+            a = a.transpose(3, 2, 0, 1) if a.ndim == 4 else a.T
+        sd[key] = torch.from_numpy(np.array(a, order="C"))  # keeps 0-dim leaves 0-dim
     return sd
 
 
 def flax_to_state_dict(tree: Mapping, variant: str) -> Dict[str, torch.Tensor]:
     """The port's state_dict of the whole model `variant` from its Flax
-    variables (see flax_to_torch). Raises ValueError unless the names and
-    shapes are exactly those of the port's model of `variant`, with the class
-    count that the head's last convolution gives."""
+    variables (see flax_to_torch): the open-vocabulary ``YOLOWorld`` when
+    the tree has a ``WorldHead_0``, else ``YOLOv8`` with the class count
+    that the head's last convolution gives. Raises ValueError unless the
+    names and shapes are exactly those of that model."""
     sd = flax_to_torch(tree)
-    num_classes = sd.get("DetectHead_0.Conv_1.bias", torch.empty(0)).shape[0]
     with torch.device("meta"):
-        want = YOLOv8(YoloConfig(variant=variant, num_classes=num_classes)).state_dict()
+        if "WorldHead_0.logit_scale" in sd:
+            from rtvm_tpu_torch.models.yolo.world import YOLOWorld
+
+            dim = sd["WorldHead_0.Conv_1.bias"].shape[0]
+            want = YOLOWorld(YoloConfig(variant=variant, num_classes=dim), dim=dim).state_dict()
+        else:
+            num_classes = sd.get("DetectHead_0.Conv_1.bias", torch.empty(0)).shape[0]
+            want = YOLOv8(YoloConfig(variant=variant, num_classes=num_classes)).state_dict()
     missing, extra = sorted(set(want) - set(sd)), sorted(set(sd) - set(want))
     if missing or extra:
         raise ValueError(f"{variant}: checkpoint names differ from the model's: "

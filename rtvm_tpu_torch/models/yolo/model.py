@@ -143,9 +143,10 @@ def _upsample2(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
-class YOLOv8(FlaxScope):
-    """Either family, chosen by ``cfg.variant``. forward(x [B, 3, H, W] RGB
-    in 0..1) -> (box_logits, cls_logits), one NCHW tensor per stride."""
+class YoloTrunk(FlaxScope):
+    """The trunk of either family, chosen by ``cfg.variant``, registered
+    first; subclasses add their head after it. features(x [B, 3, H, W] RGB
+    in 0..1) -> [n3, m4, m5], NCHW at strides 8, 16 and 32."""
 
     def __init__(self, cfg: YoloConfig):
         super().__init__()
@@ -153,10 +154,10 @@ class YOLOv8(FlaxScope):
         self.is11 = cfg.variant in VARIANTS11
         if not self.is11 and cfg.variant not in VARIANTS:
             raise ValueError(f"unknown YOLO variant {cfg.variant!r}")
-        self.trunk, chs = (yolo11_features if self.is11 else yolo_features)(cfg, self)
-        self.head = self.child(DetectHead(chs, cfg.num_classes, cfg.reg_max, dw_cls=self.is11))
+        self.trunk, self.feature_channels = (yolo11_features if self.is11 else yolo_features)(
+            cfg, self)
 
-    def forward(self, x):
+    def features(self, x) -> List[torch.Tensor]:
         layer = [getattr(self, n) for n in self.trunk]
         x = layer[1](layer[0](x))
         p3 = layer[4](layer[3](layer[2](x)))
@@ -169,7 +170,20 @@ class YOLOv8(FlaxScope):
         n3 = neck[1](torch.cat([_upsample2(n4), p3], dim=1))
         m4 = neck[3](torch.cat([neck[2](n3), n4], dim=1))
         m5 = neck[5](torch.cat([neck[4](m4), p5], dim=1))
-        return getattr(self, self.head)([n3, m4, m5])
+        return [n3, m4, m5]
+
+
+class YOLOv8(YoloTrunk):
+    """Either family, chosen by ``cfg.variant``. forward(x [B, 3, H, W] RGB
+    in 0..1) -> (box_logits, cls_logits), one NCHW tensor per stride."""
+
+    def __init__(self, cfg: YoloConfig):
+        super().__init__(cfg)
+        self.head = self.child(DetectHead(self.feature_channels, cfg.num_classes, cfg.reg_max,
+                                          dw_cls=self.is11))
+
+    def forward(self, x):
+        return getattr(self, self.head)(self.features(x))
 
 
 def build_yolo(variant: str = "yolov8n", num_classes: int = 80, seed: int = 0,

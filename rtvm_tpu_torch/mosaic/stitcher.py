@@ -542,6 +542,24 @@ class VideMosaic:
         self.draw_border(img, corners + np.asarray(pad, corners.dtype))
         imwrite_jpg(os.path.join(self.output_dir, "mosaic_progress.jpg"), img)
 
+    @property
+    def _detector(self):
+        """The ObjectDetector (with its defaults) on this stitcher's device,
+        built at first use."""
+        if not hasattr(self, "_detector_inst"):
+            from rtvm_tpu_torch.detect.detector import ObjectDetector
+
+            self._detector_inst = ObjectDetector(device=self.device)
+        return self._detector_inst
+
+    def detect_people(self, frame):
+        """Person boxes of one BGR frame."""
+        return self._detector.detect_people(frame)
+
+    def detect_objects(self, image):
+        """Multi-pass aerial detection on a BGR image (e.g. the mosaic)."""
+        return self._detector.detect_objects(image)
+
     def checkpoint(self) -> dict:
         """Snapshot of the full state as numpy arrays, with the JAX package's
         keys and dtypes (so either package can restore it): ORB's words go

@@ -1,9 +1,11 @@
-"""Separable filters (counterpart of ``rtvm_tpu/ops/filters.py``).
+"""Separable filters and morphology (counterpart of ``rtvm_tpu/ops/filters.py``).
 
 A 1-D filter with edge-replicate padding is a banded matrix with the clipped
 taps folded into the border rows, so each pass is one matrix product on the
 last or second-to-last axis: plain PyTorch, in full float32 (TF32 is off, see
-the package ``__init__``).
+the package ``__init__``). Dilation and erosion are rectangular max pools
+with "SAME" padding by -inf (for a max) or +inf (for a min), so the border
+never erodes.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=64)
@@ -65,6 +68,58 @@ def gaussian_blur(img: torch.Tensor, sigma: float, radius: int | None = None) ->
     """Separable Gaussian blur of a [..., H, W] float image."""
     taps = gaussian_kernel1d(sigma, radius)
     return conv1d_edge(conv1d_edge(img, taps, axis=-1), taps, axis=-2)
+
+
+def box_blur(img: torch.Tensor, size: int) -> torch.Tensor:
+    """size x size mean filter of a [..., H, W] float image, edges replicated."""
+    taps = np.full((size,), 1.0 / size, dtype=np.float32)
+    return conv1d_edge(conv1d_edge(img, taps, axis=-1), taps, axis=-2)
+
+
+def sobel(img: torch.Tensor):
+    """(gx, gy) of the 3x3 Sobel operator (cv2.Sobel with ksize=3), edges
+    replicated."""
+    d = np.array([-1.0, 0.0, 1.0], dtype=np.float32)
+    s = np.array([1.0, 2.0, 1.0], dtype=np.float32)
+    gx = conv1d_edge(conv1d_edge(img, d, axis=-1), s, axis=-2)
+    gy = conv1d_edge(conv1d_edge(img, s, axis=-1), d, axis=-2)
+    return gx, gy
+
+
+def _max_filter(img: torch.Tensor, size: int) -> torch.Tensor:
+    """size x size max over the last two axes with "SAME" padding by -inf
+    (lax.reduce_window's: (size - 1) // 2 before, the rest after)."""
+    lo = (size - 1) // 2
+    hi = size - 1 - lo
+    x = img.reshape((-1, 1) + img.shape[-2:])
+    x = F.pad(x, (lo, hi, lo, hi), value=-math.inf)
+    return F.max_pool2d(x, size, stride=1).reshape(img.shape)
+
+
+def dilate(mask: torch.Tensor, size: int, iterations: int = 1) -> torch.Tensor:
+    """Dilation of a [..., H, W] mask by a size x size rectangle (cv2.dilate),
+    as float32."""
+    out = mask.to(torch.float32)
+    for _ in range(iterations):
+        out = _max_filter(out, size)
+    return out
+
+
+def erode(mask: torch.Tensor, size: int, iterations: int = 1) -> torch.Tensor:
+    """Erosion by a size x size rectangle, as float32; outside the image
+    counts as +inf."""
+    out = mask.to(torch.float32)
+    for _ in range(iterations):
+        out = -_max_filter(-out, size)
+    return out
+
+
+def morph_open(mask: torch.Tensor, size: int, iterations: int = 1) -> torch.Tensor:
+    return dilate(erode(mask, size, iterations), size, iterations)
+
+
+def morph_close(mask: torch.Tensor, size: int, iterations: int = 1) -> torch.Tensor:
+    return erode(dilate(mask, size, iterations), size, iterations)
 
 
 def _shift(img: torch.Tensor, off: int, dim: int, fill: float) -> torch.Tensor:

@@ -2,7 +2,9 @@
 ``rtvm_tpu/pipelines/mosaic_pipeline.py``: ``run_mosaic`` stitches a whole
 clip window by window (or in fused multi-window calls), and ``main`` writes
 the outputs: ``mosaic.jpg``, ``mosaic_progress.jpg`` (``show_intermediate``)
-and ``Detections/frame_NNNNN_detected.jpg`` (``per_frame_detection``), with
+and ``Detections/frame_NNNNN_detected.jpg`` (``per_frame_detection``), then
+runs the detection on the mosaic (``debug_watershed.jpg``) and the
+navigation map (``debug_texture_mask.jpg``, ``navigation_map.jpg``), with
 the progress lines every 50 frames in Russian and English (the web UI parses
 stdout) and ``update_callback(frame_count, mosaic_u8, progress_pct)``.
 
@@ -13,9 +15,10 @@ windows' diagnostics once after the loop. Unlike the JAX driver, no window
 waits for the device (that was a workaround for the TPU's transport); the
 clock stops after ``torch.cuda.synchronize()``.
 
-Not ported yet: the detection on the mosaic (``enable_detection``, ROADMAP.md
-Queue 1 item 5), the navigation map (``enable_navigation``) and the image
-directory route (``images_dir``), both Queue 1 item 6. Asking for one raises
+Unlike the JAX driver, ``main`` does not catch an exception of the
+detection on the mosaic or of the navigation map: a run whose detection
+fails raises instead of writing a partial output. Not ported yet: the image
+directory route (``images_dir``, ROADMAP.md Queue 1 item 6), which raises
 NotImplementedError before any work.
 """
 
@@ -36,10 +39,6 @@ from rtvm_tpu_torch.io.video import VideoReader
 from rtvm_tpu_torch.mosaic.stitcher import VideMosaic, WindowAux
 from rtvm_tpu_torch.utils.image import crop_black_areas, scale_to_screen
 from rtvm_tpu_torch.utils.timing import StageTimer
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, Queue 1 item {item})")
 
 
 def _sync(dev: torch.device) -> None:
@@ -334,21 +333,21 @@ def main(
     area, scaled to fit the screen) into `output_dir` (default: the working
     directory); with ``show_intermediate``, ``mosaic_progress.jpg`` as the
     stitch goes; with ``per_frame_detection``, ``Detections/`` from
-    ``ObjectDetector(model=config.detect.model, load_world=False)``. The JAX
-    driver builds that detector with its default ``load_world=True``, which
-    also loads the open-vocabulary model that only the detection on the
-    mosaic uses (not ported). The detection on the mosaic, the navigation map
-    and the image-directory route raise NotImplementedError; set
-    ``enable_detection=False`` and ``enable_navigation=False``.
+    ``ObjectDetector(model=config.detect.model, load_world=False)`` (the
+    JAX driver builds it with the open-vocabulary model too, which only the
+    detection on the mosaic uses). With ``enable_detection``,
+    ``ObjectDetector(model=config.detect.model).detect_objects`` on the
+    written mosaic (``stats["detections"]``, ``debug_watershed.jpg``); with
+    ``enable_navigation``, ``navigation_map.jpg`` and
+    ``debug_texture_mask.jpg``. The stages are timed as ``detect_init``,
+    ``detect_mosaic``, ``navigate`` and ``navigation_jpg``. The
+    image-directory route raises NotImplementedError.
 
     `video_path` is any source ``io.video.VideoReader`` reads; there is no
     default clip. Returns (stitcher, stats)."""
     if images_dir is not None:
-        raise _not_ported("the image-directory route (images_dir, images_pipeline)", 6)
-    if enable_detection:
-        raise _not_ported("detection on the mosaic (enable_detection, detect_objects)", 5)
-    if enable_navigation:
-        raise _not_ported("the navigation map (enable_navigation, navigate/)", 6)
+        raise NotImplementedError("the image-directory route (images_dir, images_pipeline) is "
+                                  "not ported yet (ROADMAP.md, Queue 1 item 6)")
     if video_path is None:
         raise ValueError("no video given: pass a video path, a .npy file or a uint8 array "
                          "of frames")
@@ -390,6 +389,31 @@ def main(
     with timer.stage("mosaic_jpg"):
         imwrite_jpg(mosaic_path, scaled)
     print(f"Мозаика сохранена: {mosaic_path}")
+
+    detections = []
+    if enable_detection:
+        from rtvm_tpu_torch.detect.detector import ObjectDetector
+
+        with timer.stage("detect_init"):
+            mosaic_detector = ObjectDetector(model=config.detect.model, device=dev)
+        with timer.stage("detect_mosaic"):
+            detections = mosaic_detector.detect_objects(scaled, debug_dir=out_dir)
+        stats["detections"] = len(detections)
+        counts: dict = {}
+        for d in detections:
+            counts[d["class"]] = counts.get(d["class"], 0) + 1
+        for cls, n in sorted(counts.items()):
+            print(f"  {cls}: {n}")
+
+    if enable_navigation:
+        from rtvm_tpu_torch.navigate.mapping import analyze_for_navigation
+
+        with timer.stage("navigate"):
+            nav = analyze_for_navigation(scaled, detections, debug_dir=out_dir, device=dev)
+        nav_path = os.path.join(out_dir, "navigation_map.jpg")
+        with timer.stage("navigation_jpg"):
+            imwrite_jpg(nav_path, nav)
+        print(f"Карта навигации сохранена: {nav_path}")
 
     if update_callback is not None:
         update_callback(stats["frames"], output_img, 100.0)

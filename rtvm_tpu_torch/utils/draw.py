@@ -1,6 +1,7 @@
-"""Numpy counterparts of the cv2 drawing calls on the driver's path (the card
-has no cv2): ``line``, ``rectangle`` and ``put_text``, each drawing in place
-on a [H, W, 3] uint8 image and returning it, as cv2 does.
+"""Numpy counterparts of the cv2 drawing calls on the driver's and the
+navigation map's paths (the card has no cv2): ``line``, ``rectangle``,
+``circle``, ``polylines``, ``draw_contours`` and ``put_text``, each drawing
+in place on a [H, W, 3] uint8 image and returning it, as cv2 does.
 
 - ``line`` at thickness 1 is cv2's ``LINE_8``: the same Bresenham walk from
   the left end point, pixel for pixel (for end points inside the image; cv2
@@ -11,11 +12,21 @@ on a [H, W, 3] uint8 image and returning it, as cv2 does.
   and two circles, so a few edge pixels differ.
 - ``rectangle`` is cv2's: the closed polyline of its four corners, or filled
   for a negative thickness.
+- ``circle`` filled is cv2's midpoint circle, pixel for pixel; an outline
+  thicker than 1 is cv2's polygon of the circle (a vertex every 18 degrees
+  up to radius 14), here with its vertices rounded to whole pixels and its
+  sides drawn by ``line``.
+- ``polylines`` draws each side with ``line`` (cv2 caps every vertex too,
+  so the union is the same shape); ``draw_contours`` does so too, but at
+  thickness 2 draws a contour of horizontal, vertical and diagonal runs at
+  once, with the same pixels.
 - ``put_text`` draws with an embedded 5x7 bitmap font (two more rows for
   descenders) scaled to the cap height of cv2's ``FONT_HERSHEY_SIMPLEX`` at
   the same scale, on the same baseline origin (``org`` is the bottom-left of
   the text). The glyphs are not Hershey's: cv2's stroke data is not
-  available to the port.
+  available to the port. The font has the Cyrillic letters of the
+  navigation map's legend; ``put_text_top`` places text by its top-left
+  corner as PIL does, with a one-pixel black shadow.
 """
 
 from __future__ import annotations
@@ -120,7 +131,17 @@ _FONT = {  # rows top to bottom, "#" inked; rows 7-8 (when given) hang below the
     "|": "..#../..#../..#../..#../..#../..#../..#..",
     "}": ".#.../..#../..#../...#./..#../..#../.#...",
     "~": "...../...../.#.../#.#.#/...#./...../.....",
+    # the Cyrillic letters of the navigation map's legend ("Маршрут",
+    # "Препятствия", "Старт"); those shaped like Latin letters share their glyphs
+    "П": "#####/#...#/#...#/#...#/#...#/#...#/#...#",
+    "п": "...../...../#####/#...#/#...#/#...#/#...#",
+    "т": "...../...../#####/..#../..#../..#../..#..",
+    "ш": "...../...../#.#.#/#.#.#/#.#.#/#.#.#/#####",
+    "я": "...../...../.####/#...#/.####/..#.#/.#..#",
+    "в": "...../...../####./#...#/####./#...#/####.",
+    "и": "...../...../#...#/#..##/#.#.#/##..#/#...#",
 }
+_FONT.update({cyr: _FONT[lat] for cyr, lat in zip("аеорсуМСР", "aeopcyMCP")})
 _BODY_ROWS = 7
 _HERSHEY_CAP = 21.0  # FONT_HERSHEY_SIMPLEX's cap height in font units at scale 1
 _COL_ASPECT = 0.7  # glyph column width over row height
@@ -283,6 +304,76 @@ def rectangle(img: np.ndarray, p1, p2, color, thickness: int = 1) -> np.ndarray:
     for i in range(4):
         line(img, pts[i - 1], pts[i], color, thickness)
     return img
+
+
+def circle(img: np.ndarray, center, radius: int, color, thickness: int = 1) -> np.ndarray:
+    """cv2.circle(img, center, radius, color, thickness), in place: filled
+    for a negative thickness, else the outline (see the module's note)."""
+    cx, cy = int(center[0]), int(center[1])
+    if thickness < 0:
+        dy, dx = _circle_offsets(int(radius))
+        _paint(img, dy + cy, dx + cx, color)
+        return img
+    delta = 90 if radius < 3 else 30 if radius < 10 else 18 if radius < 15 else 5
+    ang = np.radians(np.arange(0, 360 + delta, delta))
+    pts = np.stack([cx + radius * np.cos(ang), cy + radius * np.sin(ang)], -1)
+    return polylines(img, [_round_half_up(pts)], False, color, thickness)
+
+
+def polylines(img: np.ndarray, pts_list, closed: bool, color, thickness: int = 1) -> np.ndarray:
+    """cv2.polylines(img, pts_list, closed, color, thickness), in place."""
+    for pts in pts_list:
+        p = np.asarray(pts).reshape(-1, 2)
+        segs = list(zip(p[:-1], p[1:])) + ([(p[-1], p[0])] if closed and len(p) > 1 else [])
+        for a, b in segs or [(p[0], p[0])]:
+            line(img, a, b, color, thickness)
+    return img
+
+
+def draw_contours(img: np.ndarray, contours, color, thickness: int = 1) -> np.ndarray:
+    """cv2.drawContours(img, contours, -1, color, thickness) for a
+    non-negative thickness: each contour as a closed polyline. At thickness
+    2, contours whose sides are all horizontal, vertical or diagonal runs
+    (those of ``contours.find_external_contours``) are drawn at once: each
+    run pixel widened by the plus of the radius-1 round cap, and a diagonal
+    run's pixels also by their two neighbours across the run (what
+    ``line``'s band gives a diagonal side)."""
+    fast = []
+    for c in contours:
+        p = np.asarray(c, np.int64).reshape(-1, 2)
+        d = np.roll(p, -1, axis=0) - p
+        if thickness == 2 and len(p) and np.all(
+                (d[:, 0] == 0) | (d[:, 1] == 0) | (np.abs(d[:, 0]) == np.abs(d[:, 1]))):
+            fast.append((p, d))
+        else:
+            polylines(img, [p], True, color, thickness)
+    if not fast:
+        return img
+    p = np.concatenate([f[0] for f in fast])
+    d = np.concatenate([f[1] for f in fast])
+    n = np.abs(d).max(1) + 1  # the pixels of each run, both end points included
+    k = np.arange(int(n.sum())) - np.repeat(np.cumsum(n) - n, n)
+    xs = np.repeat(p[:, 0], n) + k * np.repeat(np.sign(d[:, 0]), n)
+    ys = np.repeat(p[:, 1], n) + k * np.repeat(np.sign(d[:, 1]), n)
+    slope = np.repeat(np.sign(d[:, 0]) * np.sign(d[:, 1]), n)  # +1 or -1 on a diagonal run
+    dy, dx = _circle_offsets(1)
+    _paint(img, (ys[:, None] + dy).ravel(), (xs[:, None] + dx).ravel(), color)
+    on = slope != 0
+    for sy in (1, -1):  # (dy, dx) = (sy, -sy * slope)
+        _paint(img, ys[on] + sy, xs[on] - sy * slope[on], color)
+    return img
+
+
+def put_text_top(img: np.ndarray, text: str, pos, color, size: int = 16) -> np.ndarray:
+    """Text with its top-left corner at `pos` and a black shadow one pixel
+    down and right, as the JAX package draws its labels with PIL's
+    DejaVuSans at `size` px (cap height 0.75 of it, 3/16 of it below the
+    top)."""
+    cap = int(round(0.75 * size))
+    base = int(pos[1]) + int(round(15 * size / 16))
+    scale = cap / _HERSHEY_CAP
+    put_text(img, text, (int(pos[0]) + 1, base + 1), scale, (0, 0, 0))
+    return put_text(img, text, (int(pos[0]), base), scale, color)
 
 
 def put_text(img: np.ndarray, text: str, org, scale: float, color) -> np.ndarray:

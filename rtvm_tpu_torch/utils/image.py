@@ -1,8 +1,7 @@
 """Host-side image utilities, the counterpart of ``rtvm_tpu/utils/image.py``:
 ``crop_black_areas``, ``get_screen_size`` and ``psnr`` are copies;
 ``scale_to_screen`` implements cv2's ``INTER_AREA`` downscale itself, since the
-card has no cv2. ``draw_dotted_line`` belongs to navigation and is not ported
-yet (ROADMAP.md, Queue 1 item 6).
+card has no cv2; ``draw_dotted_line`` draws with ``utils/draw.py``.
 """
 
 from __future__ import annotations
@@ -10,6 +9,8 @@ from __future__ import annotations
 import math
 
 import numpy as np
+
+from rtvm_tpu_torch.utils.draw import line
 
 
 def crop_black_areas(image: np.ndarray, threshold: int = 15, margin: int = 5) -> np.ndarray:
@@ -82,6 +83,19 @@ def scale_to_screen(image: np.ndarray, screen: tuple[int, int] | None = None) ->
     if scale >= 1.0:
         return image
     return resize_area(image, int(w * scale), int(h * scale))
+
+
+def draw_dotted_line(img: np.ndarray, p1, p2, color, thickness: int = 2, gap: int = 10):
+    """A dotted segment: every other `gap`-px piece of p1-p2, in place."""
+    p1 = np.asarray(p1, float)
+    p2 = np.asarray(p2, float)
+    dist = float(np.hypot(*(p2 - p1)))
+    n = max(int(dist / gap), 1)
+    for i in range(0, n + 1, 2):
+        a = p1 + (p2 - p1) * (i / n)
+        b = p1 + (p2 - p1) * (min(i + 1, n) / n)
+        line(img, tuple(a.astype(int)), tuple(b.astype(int)), color, thickness)
+    return img
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:

@@ -25,6 +25,10 @@ import torch
 from rtvm_tpu.detect.detector import ObjectDetector as JaxDetector
 from rtvm_tpu.models.yolo import postprocess as JP
 from rtvm_tpu.models.yolo.train_synth import make_eval_set
+from rtvm_tpu.detect import classical as JCL
+from rtvm_tpu_torch.detect import classes as C
+from rtvm_tpu_torch.detect import classical as TCL
+from rtvm_tpu_torch.detect import detector as TD
 from rtvm_tpu_torch.detect.detector import ObjectDetector
 from rtvm_tpu_torch.models.yolo import postprocess as TP
 
@@ -257,16 +261,21 @@ def test_run_pass_and_detect_people(detectors, scenes):
 
 
 def test_detector_surface_not_ported_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        ObjectDetector("yolov8n", device="cpu")  # load_world=True, the JAX default
+    """Only the ultralytics .pt route is left unported; the open-vocabulary
+    companion (load_world=True, the JAX default) and detect_objects are
+    ported (tests/test_torch_world.py)."""
+    td = ObjectDetector("yolov8n", device="cpu")
+    assert td.model_world is not None and td.model_world.is_open_vocab
+    assert td.model_world.classes == [C.normalize_class_name(c) for c in C.AERIAL_CLASSES]
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):  # no yolo11s_aerial.npz
         ObjectDetector("yolo11s", weights_path="yolo11s.pt", load_world=False, device="cpu")
     # as in the JAX class, a bundled npz is preferred to a .pt path
     assert ObjectDetector("yolov8n", weights_path="yolov8n.pt", load_world=False,
                           device="cpu").weights_source.endswith("yolov8n_aerial.npz")
     td = ObjectDetector("yolov8n", load_world=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        td.detect_objects(np.zeros((64, 64, 3), np.uint8))
+    assert td.model_world is None
+    # a small blank image: no tiles, no detections, nothing classical
+    assert td.detect_objects(np.zeros((64, 64, 3), np.uint8)) == []
     # draw_detections is ported now: with no detections it returns an unchanged copy
     blank = np.zeros((64, 64, 3), np.uint8)
     drawn = td.draw_detections(blank, [])
@@ -309,3 +318,95 @@ def test_detector_runs_on_cuda_unless_told_otherwise():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ObjectDetector("yolov8n", load_world=False)
+
+
+# ------------------------------------------------------------------ the detection on the mosaic's parts
+
+
+def _dets(seed, n=120):
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        x, y = rng.uniform(0, 400, 2)
+        w, h = rng.choice([3.0, 8.0, 30.0, 60.0]) * rng.uniform(0.5, 2, 2)
+        out.append({"bbox": [x, y, x + w, y + h],
+                    "class": ["car", "building", "person", "boat"][i % 4],
+                    "confidence": float(rng.choice([0.5, rng.uniform(0, 1)]))})
+        if i % 5 == 0:  # near duplicates
+            out.append(dict(out[-1], bbox=[v + rng.uniform(-6, 6) for v in out[-1]["bbox"]]))
+    return out
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_dedup_and_area_filter_identical(seed):
+    dets = _dets(seed)
+    want = JaxDetector._dedup([dict(d) for d in dets], center_px=40.0, iou_th=0.5)
+    got = ObjectDetector._dedup([dict(d) for d in dets], center_px=40.0, iou_th=0.5)
+    assert got == want and len(want) < len(dets)
+    assert ObjectDetector._area_filter(got, 420, 430) == JaxDetector._area_filter(want, 420, 430)
+    a, b = dets[0]["bbox"], dets[1]["bbox"]
+    from rtvm_tpu.detect import detector as jax_detector
+
+    assert TD._iou(a, b) == jax_detector._iou(a, b)
+    assert TD._center_dist(a, b) == jax_detector._center_dist(a, b)
+
+
+@pytest.mark.parametrize("dim,starts", [(600, [0]), (640, [0]), (900, [0, 260]),
+                                        (1041, [0, 400, 401]), (1300, [0, 400, 660]),
+                                        (1280, [0, 400, 640])])
+def test_tile_grid_anchors_a_last_tile_at_dim_minus_640(dim, starts):
+    """The JAX detector's grid (every 400 px, plus a tile at dim - 640)."""
+    assert TD.tile_starts(dim) == starts
+
+
+def classical_scene(seed, h=600, w=900):
+    """Greenish ground with flat gray roofs (some touching) and bright cars."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    img = cv2.GaussianBlur(rng.randint(40, 200, (h, w, 3)).astype(np.uint8), (0, 0), 3)
+    img = (img * 0.5 + np.array([40, 90, 60]) * 0.5).astype(np.uint8)
+    for _ in range(14):
+        x, y = rng.randint(0, w - 80), rng.randint(0, h - 80)
+        g = rng.randint(90, 200)
+        cv2.rectangle(img, (x, y), (x + rng.randint(25, 90), y + rng.randint(25, 90)),
+                      (g, g, g + rng.randint(-8, 8)), -1)
+    for _ in range(12):
+        x, y = rng.randint(0, w - 40), rng.randint(0, h - 40)
+        cv2.rectangle(img, (x, y), (x + rng.randint(10, 30), y + rng.randint(10, 22)),
+                      (235, 235, 240), -1)
+    return img
+
+
+def _box_share(want, got, iou_min):
+    def iou(a, b):
+        ix1, iy1, ix2, iy2 = max(a[0], b[0]), max(a[1], b[1]), min(a[2], b[2]), min(a[3], b[3])
+        inter = max(ix2 - ix1, 0) * max(iy2 - iy1, 0)
+        return inter / ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter)
+
+    hit = sum(any(iou(w["bbox"], g["bbox"]) >= iou_min for g in got) for w in want)
+    return hit / max(len(want), 1)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_classical_detectors_match_jax(seed, tmp_path):
+    """Vehicle boxes identical. Buildings (watershed, chamfer distance,
+    Douglas-Peucker; ROADMAP Queue 3) matched at IoU >= 0.8 on at least 90%
+    both ways (measured: identical, with the masks equal pixel for pixel)."""
+    import jax.numpy as jnp
+
+    img = classical_scene(seed)
+    jv, tv = JCL.detect_vehicles_classical(img), TCL.detect_vehicles_classical(img, device="cpu")
+    assert len(jv) >= 5 and tv == jv
+    jb = JCL.detect_buildings_classical(img)
+    tb = TCL.detect_buildings_classical(img, debug_path=str(tmp_path / "ws.jpg"), device="cpu")
+    assert len(jb) >= 5
+    assert _box_share(jb, tb, 0.8) >= 0.9 and _box_share(tb, jb, 0.8) >= 0.9
+    for (want, got) in zip(JCL._building_masks(jnp.asarray(img)),
+                           TCL._building_masks(torch.from_numpy(img))):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(TCL._vehicle_mask(torch.from_numpy(img)).numpy(),
+                                  np.asarray(JCL._vehicle_mask(jnp.asarray(img))))
+    from rtvm_tpu_torch.io.jpeg import jpeg_size
+
+    assert jpeg_size((tmp_path / "ws.jpg").read_bytes()) == img.shape[:2]

@@ -15,12 +15,14 @@ import pytest
 import torch
 
 from rtvm_tpu.geometry import homography as JG
+from rtvm_tpu.ops import clahe as JCL
 from rtvm_tpu.ops import color as JC
 from rtvm_tpu.ops import filters as JF
 from rtvm_tpu.ops import match as JM
 from rtvm_tpu.ops import sampling as JS
 from rtvm_tpu.ops.features import fast as JFAST
 from rtvm_tpu_torch.geometry import homography as TG
+from rtvm_tpu_torch.ops import clahe as TCL
 from rtvm_tpu_torch.ops import color as TC
 from rtvm_tpu_torch.ops import filters as TF
 from rtvm_tpu_torch.ops import match as TM
@@ -95,6 +97,77 @@ def test_topk2d_blocked_same_indices_as_jax():
     np.testing.assert_array_equal(ty[0][jv], jy[jv])
     np.testing.assert_array_equal(tx[0][jv], jx[jv])
     np.testing.assert_array_equal(tt[0][jv], jt[jv])
+
+
+# ------------------------------------------------------------------ HSV, filters, morphology, CLAHE
+# (detection on the mosaic and the navigation map, BASELINE config 4)
+
+HSV_TOL = 1e-4  # OpenCV 8-bit ranges (H 0..180, S and V 0..255)
+FILTER_TOL = 1e-4 * 255  # 0..255 images; the band products sum in another order
+CLAHE_TOL = 1e-3  # float CLAHE on 0..255
+CLAHE_U8_EQUAL = 0.995  # enhance_for_detection truncated to uint8: least equal share
+CLAHE_U8_MAX = 1  # ... and largest difference in levels
+
+
+def _bgr_scene(seed, h=150, w=230):
+    """uint8 BGR with flat gray patches (exact HSV ties at S = 50) over noise."""
+    rng = np.random.RandomState(seed)
+    img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+    for _ in range(12):
+        y, x = rng.randint(0, h - 20), rng.randint(0, w - 20)
+        g = rng.randint(60, 220)
+        img[y : y + 20, x : x + 20] = (g, g, g + rng.randint(-10, 10))
+    return img
+
+
+@pytest.mark.parametrize("jit", [False, True])
+def test_bgr2hsv_matches_jax(jit):
+    """Within HSV_TOL of the JAX function; equal to the jitted one, which
+    XLA compiles with a product by 1/255 that the port reproduces."""
+    img = _bgr_scene(0)
+    fn = jax.jit(JC.bgr2hsv) if jit else JC.bgr2hsv
+    ref = np.asarray(fn(jnp.asarray(img)))
+    out = TC.bgr2hsv(_t(img)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=HSV_TOL)
+    if jit:
+        np.testing.assert_array_equal(out, ref)
+    gray = img[..., 0].astype(np.float32)
+    np.testing.assert_array_equal(TC.gray2bgr(_t(gray)).numpy(), np.asarray(JC.gray2bgr(jnp.asarray(gray))))
+
+
+@pytest.mark.parametrize("size", [3, 11])
+def test_box_blur_and_sobel_match_jax(size):
+    img = np.random.RandomState(1).uniform(0, 255, (2, 61, 83)).astype(np.float32)
+    np.testing.assert_allclose(TF.box_blur(_t(img), size).numpy(),
+                               np.asarray(JF.box_blur(jnp.asarray(img), size)), rtol=0, atol=FILTER_TOL)
+    for got, want in zip(TF.sobel(_t(img)), JF.sobel(jnp.asarray(img))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=FILTER_TOL)
+
+
+@pytest.mark.parametrize("iterations", [1, 2, 3])
+@pytest.mark.parametrize("size", [3, 5, 11, 15])
+def test_morphology_matches_jax_exactly(size, iterations):
+    rng = np.random.RandomState(size * 10 + iterations)
+    mask = (rng.rand(2, 47, 66) > 0.8).astype(np.float32)
+    mask[0, :3] = 1.0  # a full border row: the border must not erode
+    for name in ("dilate", "erode", "morph_open", "morph_close"):
+        got = getattr(TF, name)(_t(mask), size, iterations).numpy()
+        want = np.asarray(getattr(JF, name)(jnp.asarray(mask), size, iterations))
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (64, 64), (203, 311)])
+def test_clahe_matches_jax(shape):
+    gray = np.random.RandomState(shape[0]).uniform(0, 255, shape).astype(np.float32)
+    np.testing.assert_allclose(TCL.clahe(_t(gray)).numpy(), np.asarray(JCL.clahe(jnp.asarray(gray))),
+                               rtol=0, atol=CLAHE_TOL)
+
+
+def test_enhance_for_detection_matches_jax(textured_image):
+    ref = np.asarray(JCL.enhance_for_detection(jnp.asarray(textured_image))).astype(np.uint8)
+    got = TCL.enhance_for_detection(_t(textured_image)).to(torch.uint8).numpy()
+    d = np.abs(got.astype(int) - ref.astype(int))
+    assert (d == 0).mean() >= CLAHE_U8_EQUAL and d.max() <= CLAHE_U8_MAX, ((d == 0).mean(), d.max())
 
 
 # ------------------------------------------------------------------ matching
@@ -243,7 +316,7 @@ def test_ransac_fails_cleanly_with_too_few_matches():
 
 _IMPORT_PROBE = """
 import sys
-for name in ("jax", "jaxlib", "cv2", "rtvm_tpu"):
+for name in ("jax", "jaxlib", "cv2", "PIL", "rtvm_tpu"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import importlib, py_compile
 mods = ["rtvm_tpu_torch", "rtvm_tpu_torch.config", "rtvm_tpu_torch.device",
@@ -260,11 +333,15 @@ mods = ["rtvm_tpu_torch", "rtvm_tpu_torch.config", "rtvm_tpu_torch.device",
         "rtvm_tpu_torch.utils.timing", "rtvm_tpu_torch.utils.image", "rtvm_tpu_torch.utils.draw",
         "rtvm_tpu_torch.io.jpeg", "rtvm_tpu_torch.io.video", "rtvm_tpu_torch.mosaic.prescan",
         "rtvm_tpu_torch.pipelines.mosaic_pipeline", "rtvm_tpu_torch.cli",
-        "rtvm_tpu_torch.__main__"]
+        "rtvm_tpu_torch.__main__", "rtvm_tpu_torch.ops.clahe",
+        "rtvm_tpu_torch.models.yolo.world", "rtvm_tpu_torch.utils.contours",
+        "rtvm_tpu_torch.detect.classical", "rtvm_tpu_torch.navigate.native",
+        "rtvm_tpu_torch.navigate.obstacles", "rtvm_tpu_torch.navigate.astar",
+        "rtvm_tpu_torch.navigate.mapping"]
 for m in mods:
     importlib.import_module(m)
 py_compile.compile("chip_smoke.py", doraise=True)
-bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "cv2", "rtvm_tpu") and sys.modules[n] is not None)
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "cv2", "PIL", "rtvm_tpu") and sys.modules[n] is not None)
 assert not bad, bad
 print("OK", len(mods))
 """
@@ -285,7 +362,7 @@ def test_port_imports_without_jax_cv2_or_reference_package():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_PROBE], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "OK 33"
+    assert proc.stdout.strip() == "OK 41"
 
 
 def test_default_device_is_cuda_and_never_falls_back():

@@ -16,6 +16,7 @@ import torch
 from rtvm_tpu.config import FeatureConfig as JFeatureConfig
 from rtvm_tpu.config import MosaicConfig as JMosaicConfig
 from rtvm_tpu.config import PipelineConfig as JPipelineConfig
+from rtvm_tpu.detect import detector as JDET
 from rtvm_tpu.io.video import VideoReader as JaxReader
 from rtvm_tpu.mosaic import prescan as JP
 from rtvm_tpu.mosaic.stitcher import VideMosaic as JaxMosaic
@@ -445,17 +446,85 @@ def test_show_intermediate_writes_the_progress_image_with_the_border(small, tmp_
 
 
 def test_not_ported_parts_raise_before_any_work(tmp_path):
+    """Of main's routes only the image directory is left unported."""
     frames = np.zeros((3, 32, 32, 3), np.uint8)
     out = tmp_path / "never"
-    for kw, item in ((dict(enable_detection=True, enable_navigation=False), "item 5"),
-                     (dict(enable_detection=False, enable_navigation=True), "item 6"),
-                     (dict(images_dir=str(tmp_path), enable_detection=False,
-                           enable_navigation=False), "item 6")):
-        with pytest.raises(NotImplementedError, match=item):
-            TPL.main(frames, output_dir=str(out), device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 6"):
+        TPL.main(frames, output_dir=str(out), device="cpu", images_dir=str(tmp_path))
     assert not out.exists()
     with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
         TPL.run_mosaic(frames, visualize=True, viz_dir=str(tmp_path), device="cpu")
+
+
+OUTPUTS = ["debug_texture_mask.jpg", "debug_watershed.jpg", "mosaic.jpg", "mosaic_progress.jpg",
+           "navigation_map.jpg"]
+
+
+@pytest.fixture(scope="module")
+def both_default_mains(small):
+    """Each package's main with its defaults (progress image, detection on
+    the mosaic, navigation map) on the 9-frame ORB clip, window 4, the port
+    replaying JAX's RANSAC draws. The JAX world detector looks for its
+    checkpoint at the relative path weights/..., so JAX's main runs with the
+    repository as the working directory."""
+    _, path, d = small
+    mp = pytest.MonkeyPatch()
+    mp.setattr(TS, "pair_uniforms", _jax_draws)
+    mp.chdir(REPO)
+    made = []
+    real_det = JDET.ObjectDetector
+
+    def jax_detector(**kw):
+        made.append(real_det(**kw))
+        return made[-1]
+
+    mp.setattr(JDET, "ObjectDetector", jax_detector)
+    out_j, out_t = d / "jax_defaults", d / "port_defaults"
+    try:
+        jm, js = JPL.main(path, output_dir=str(out_j), detector_type="orb",
+                          config=JPipelineConfig(mosaic=JMosaicConfig(window_size=4)))
+        tm, ts = TPL.main(path, output_dir=str(out_t), detector_type="orb",
+                          config=PipelineConfig(mosaic=MosaicConfig(window_size=4)), device="cpu")
+    finally:
+        mp.undo()
+    assert len(made) == 1 and made[0].model_world is not None  # JAX loaded YOLOv8n-world
+    return js, ts, out_j, out_t
+
+
+def test_main_with_its_defaults_writes_what_jax_main_writes(both_default_mains):
+    js, ts, out_j, out_t = both_default_mains
+    assert sorted(os.listdir(out_t)) == sorted(os.listdir(out_j)) == OUTPUTS
+    for name in OUTPUTS:
+        mine = J.jpeg_size((out_t / name).read_bytes())
+        ref = cv2.imread(str(out_j / name)).shape[:2]
+        assert abs(mine[0] - ref[0]) <= CROP_TOL_PX and abs(mine[1] - ref[1]) <= CROP_TOL_PX, name
+    mosaic = J.jpeg_size((out_t / "mosaic.jpg").read_bytes())
+    for name in ("navigation_map.jpg", "debug_texture_mask.jpg", "debug_watershed.jpg"):
+        assert J.jpeg_size((out_t / name).read_bytes()) == mosaic
+    assert (ts["frames"], ts["accepted"]) == (js["frames"], js["accepted"])
+    assert ts["detections"] >= 1 and abs(ts["detections"] - js["detections"]) <= max(1, js["detections"] // 10)
+
+
+def test_main_stage_failures_are_not_caught(small, tmp_path, monkeypatch):
+    """Unlike the JAX driver, main lets a failure of the detection on the
+    mosaic or of the navigation map raise (ROADMAP Queue 3)."""
+    import rtvm_tpu_torch.detect.detector as det_mod
+    import rtvm_tpu_torch.navigate.mapping as nav_mod
+
+    frames = small[0][:5]
+    kw = dict(output_dir=str(tmp_path), detector_type="orb", show_intermediate=False,
+              config=PipelineConfig(mosaic=MosaicConfig(window_size=4)), device="cpu")
+
+    def broken(*a, **k):
+        raise RuntimeError("broken stage")
+
+    monkeypatch.setattr(det_mod.ObjectDetector, "detect_objects", broken)
+    with pytest.raises(RuntimeError, match="broken stage"):
+        TPL.main(frames, **kw)
+    monkeypatch.undo()
+    monkeypatch.setattr(nav_mod, "analyze_for_navigation", broken)
+    with pytest.raises(RuntimeError, match="broken stage"):
+        TPL.main(frames, enable_detection=False, **kw)
 
 
 def test_main_builds_the_frame_detector_without_the_open_vocabulary_model(small, tmp_path,
