@@ -49,7 +49,22 @@ Phases, each printed with its result and seconds on its own line:
      their sizes, each detection pass against the port's float32 run on the
      CPU, nav_blocked against the CPU's; the stage times (first call and
      warm) and peak memory;
- 11. kernel A against its plain version on the maps of a window of the SIFT
+ 11. the rest of the VideMosaic surface (phase `surface`): warp of one frame
+     on the SIFT run's state (one launch of kernel A, equal to the same call
+     with warp_plain), findHomography, validate_homography and
+     smooth_homography against a CPU stitcher, matches.jpg from
+     run_mosaic(visualize=True);
+ 12. the CLI's mosaic --images-dir (phase `images`) on three seeded images
+     (two JPEGs, a PNG): Detections/, the decoded images, the detections
+     against the port's float32 run on the CPU, the reader's decode time;
+ 13. BASELINE config 5 (phase `stream_1080p`): a 1080p clip, the pre-scan
+     at stride 8, ORB, and process_clip with YOLOv8l at (768, 1280) in
+     bf16 (weights/yolov8l_aerial.npz): the path, launches, no host-to-card
+     copy, bf16 against the card's float32, kernel A on the 1080p maps;
+ 14. the CLI's slam on a 360x640 clip with parallax (phase `slam`) against
+     the known direction and the port's CPU run, and the CLI's terrain on a
+     soil image (phase `terrain`) against the CPU run;
+ 15. kernel A against its plain version on the maps of a window of the SIFT
      run, and timed through warp_batch on them;
 then one JSON line of per-kernel numbers, the elapsed time, and as the last
 line {"ok": true, "device": {...}}. Any failed check exits non-zero. Without
@@ -261,6 +276,29 @@ def phase_warp(torch, dev, frames_u8: np.ndarray, hc: int, wc: int) -> None:
     phase("warp", t0, f"bitwise equal to warp_plain on {names}")
 
 
+def grid_sample_ms(torch, fr, G, hc: int, wc: int, out_k) -> tuple:
+    """Kernel A's function as one library call: F.grid_sample (bilinear,
+    zero padding) of the frames fr [B, 3, Hf, Wf] at the maps G, with the
+    sampling grid built beforehand. Returns (ms a call, its largest |d| from
+    the kernel's output out_k)."""
+    b, _, hf, wf = fr.shape
+    ys = torch.arange(hc, dtype=torch.float32, device=fr.device)[None, :, None]
+    xs = torch.arange(wc, dtype=torch.float32, device=fr.device)[None, None, :]
+    g = G.reshape(b, 9, 1, 1)
+    den = g[:, 6] * xs + g[:, 7] * ys + g[:, 8]
+    sx = (g[:, 0] * xs + g[:, 1] * ys + g[:, 2]) / den
+    sy = (g[:, 3] * xs + g[:, 4] * ys + g[:, 5]) / den
+    grid = torch.stack([sx * (2.0 / (wf - 1)) - 1.0, sy * (2.0 / (hf - 1)) - 1.0], -1)
+    del den, sx, sy
+
+    def call():
+        return torch.nn.functional.grid_sample(fr, grid, mode="bilinear", padding_mode="zeros",
+                                               align_corners=True)
+
+    err = float((call() - out_k).abs().max())
+    return cuda_ms(torch, call), err
+
+
 def warp_real(torch, dev, frames_u8: np.ndarray, H_abs, hc: int, wc: int) -> dict:
     """Kernel A on the maps of a window of the main-path run: bitwise equal to
     warp_plain, then timed through warp_batch beside warp_plain and
@@ -286,15 +324,7 @@ def warp_real(torch, dev, frames_u8: np.ndarray, H_abs, hc: int, wc: int) -> dic
 
     ms = cuda_ms(torch, lambda: warp_batch(fr, G, hc, wc))
     plain_ms = cuda_ms(torch, lambda: warp_plain(fr, G, hc, wc), reps=5)
-    ys = torch.arange(hc, dtype=torch.float32, device=dev)[None, :, None]
-    xs = torch.arange(wc, dtype=torch.float32, device=dev)[None, None, :]
-    g = G.reshape(b, 9, 1, 1)
-    den = g[:, 6] * xs + g[:, 7] * ys + g[:, 8]
-    sx = (g[:, 0] * xs + g[:, 1] * ys + g[:, 2]) / den
-    sy = (g[:, 3] * xs + g[:, 4] * ys + g[:, 5]) / den
-    grid = torch.stack([sx * (2.0 / (FRAME_W - 1)) - 1.0, sy * (2.0 / (FRAME_H - 1)) - 1.0], -1)
-    library_ms = cuda_ms(torch, lambda: torch.nn.functional.grid_sample(
-        fr, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
+    library_ms, library_err = grid_sample_ms(torch, fr, G, hc, wc, out_k)
     far = torch.tensor([[1, 0, 1e5], [0, 1, 1e5], [0, 0, 1]], dtype=torch.float32, device=dev)
     G_far = inverse_maps(far.expand(b, 3, 3)).contiguous()
     floor_ms = cuda_ms(torch, lambda: warp_batch(fr, G_far, hc, wc))
@@ -310,7 +340,8 @@ def warp_real(torch, dev, frames_u8: np.ndarray, H_abs, hc: int, wc: int) -> dic
           f"covered, {empty} of {b * len(tiles)} tiles skipped; through warp_batch: kernel "
           f"{ms:.4f} ms (again {ms_again:.4f}; on the card {fmt_ms(dev_ms)}, host "
           f"{wrap_us:.1f} us a call), plain {plain_ms:.4f} ms, grid_sample "
-          f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_ms / ms:.3f} of it); every tile "
+          f"{library_ms:.4f} ms (within {library_err:.2e} of the kernel), bound {bound_ms:.4f} ms "
+          f"({bound_ms / ms:.3f} of it); every tile "
           f"empty: {floor_ms:.4f} ms (store bound {out_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms)")
     return {"name": "warp_bilinear", "route": "cuda", "source": "rtvm_tpu_torch/csrc/warp.cu",
             "replaces": "rtvm_tpu/ops/pallas_warp.py:127", "max_abs_err": err, "ms": ms,
@@ -493,18 +524,18 @@ def phase_window(torch, dev, frames: np.ndarray, path: np.ndarray, card: str,
     return counts, auxs, m, fps
 
 
-def _card_copies_and_launches(torch, fn) -> tuple:
-    """(kernel launches, card-to-host copies) of one call of fn, from
+def _copies(torch, fn) -> dict:
+    """Kernel launches and copies by direction of one call of fn, from
     torch.profiler."""
     cuda = torch.autograd.DeviceType.CUDA
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == cuda]
-    dtoh = sum(1 for e in evs if e.name.startswith("Memcpy DtoH"))
-    kernels = sum(1 for e in evs if not e.name.startswith(("Memcpy", "Memset")))
-    return kernels, dtoh
+    names = [e.name for e in prof.events() if e.device_type == cuda]
+    return {"HtoD": sum(n.startswith("Memcpy HtoD") for n in names),
+            "DtoH": sum(n.startswith("Memcpy DtoH") for n in names),
+            "kernels": sum(not n.startswith(("Memcpy", "Memset")) for n in names)}
 
 
 def phase_detect(torch, dev, frames: np.ndarray, card: str, model: str, window_run) -> dict:
@@ -571,7 +602,8 @@ def phase_detect(torch, dev, frames: np.ndarray, card: str, model: str, window_r
         fps.append(n / (time.time() - t))
     flat = wins.reshape((n,) + wins.shape[2:])
     det_ms = cuda_ms(torch, lambda: det_fn(flat), reps=5, warmup=1)
-    det_launches, det_reads = _card_copies_and_launches(torch, lambda: det_fn(flat))
+    cp = _copies(torch, lambda: det_fn(flat))
+    det_launches, det_reads = cp["kernels"], cp["DtoH"]
 
     # 4 frames against the port's float32 run on the CPU
     pick = torch.tensor(DET_FRAMES)
@@ -619,10 +651,9 @@ def phase_detect(torch, dev, frames: np.ndarray, card: str, model: str, window_r
             "dets": Detections(*(v.reshape((n,) + v.shape[2:]) for v in dets))}
 
 
-def corner_error(H_abs: np.ndarray, shift: np.ndarray) -> float:
+def corner_error(H_abs: np.ndarray, shift: np.ndarray, hf: int = FRAME_H, wf: int = FRAME_W) -> float:
     """Largest distance of the frames' warped corners under H_abs [n, 3, 3]
     from the corners shifted by the known path, shift [n, 2] (x, y)."""
-    hf, wf = FRAME_H, FRAME_W
     corners = np.array([[0, 0, 1], [wf, 0, 1], [wf, hf, 1], [0, hf, 1]], np.float64).T
     got = np.einsum("bij,jk->bik", H_abs.astype(np.float64), corners)
     got = (got[:, :2] / got[:, 2:3]).transpose(0, 2, 1)
@@ -1185,6 +1216,525 @@ def phase_navigate(torch, dev, tmp: str, card: str) -> dict:
     return counts
 
 
+# ----------------------------------------------------------------- slice 7
+
+
+def phase_surface(torch, dev, frames: np.ndarray, m, auxs, tmp: str, card: str) -> dict:
+    """The rest of the VideMosaic surface on the SIFT clip's state after
+    phase `window`: warp of one frame (kernel A once, equal to the same call
+    with warp_plain), findHomography on noiseless correspondences of a known
+    H, validate_homography and smooth_homography against a CPU stitcher,
+    and run_mosaic(visualize=True)'s matches.jpg. The state is put back
+    afterwards. Returns the launch counts of the warp call and of the
+    visualize run."""
+    import rtvm_tpu_torch.ops.warp as warp_ops
+    from rtvm_tpu_torch import kernels
+    from rtvm_tpu_torch.config import MosaicConfig
+    from rtvm_tpu_torch.mosaic.stitcher import VideMosaic
+    from rtvm_tpu_torch.ops.pallas_warp import warp_plain
+    from rtvm_tpu_torch.pipelines.mosaic_pipeline import run_mosaic
+
+    t0 = time.time()
+    n = N_WINDOWS * WINDOW
+    saved = m.state
+    H = auxs[-1].H_abs[-1]  # the last frame's pose: painted once more
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.perf_counter()
+    m.warp(frames[n], H)
+    warp_ms = (time.perf_counter() - t) * 1e3
+    warp_counts = dict(kernels.launches)
+    check(warp_counts == {"warp": 1, "patches": 0}, f"surface: warp launches {warp_counts}")
+    got = (m.state.canvas, m.state.union_coarse)
+    check(bool(torch.isfinite(got[0]).all()), "surface: non-finite canvas after warp")
+    m.state = saved
+    real = warp_ops.warp_batch
+    warp_ops.warp_batch = warp_plain
+    try:
+        m.warp(frames[n], H)
+    finally:
+        warp_ops.warp_batch = real
+    check(torch.equal(got[0], m.state.canvas) and torch.equal(got[1], m.state.union_coarse),
+          "surface: warp through kernel A differs from the same call with warp_plain")
+    m.state = saved
+
+    # findHomography on the card: noiseless correspondences of a known H
+    H_true = np.array([[1.01, 0.02, 30.5], [-0.015, 0.99, -12.25], [2e-5, -1e-5, 1.0]])
+    src = np.random.RandomState(SEED + 5).uniform([0, 0], [FRAME_W, FRAME_H], (200, 2))
+    p = np.c_[src, np.ones(200)] @ H_true.T
+    dst = p[:, :2] / p[:, 2:]
+    Hf, inl = VideMosaic.findHomography(src.astype(np.float32), dst.astype(np.float32), seed=SEED,
+                                        device=dev)
+    h_err = float(np.abs(Hf / Hf[2, 2] - H_true).max())
+    check(h_err <= 1e-3 and inl.all(), f"surface: findHomography off by {h_err}, "
+                                       f"{int(inl.sum())}/200 inliers")
+
+    # validate_homography and smooth_homography against a CPU stitcher
+    cpu_m = VideMosaic(frames[0], detector_type="orb", seed=SEED, device="cpu")
+    cases = [np.eye(3)] + [np.array([[1, 0, t], [0, 1, 0], [0, 0, 1]]) for t in (49.9, 50.0, 50.1)]
+    cases += [np.array([[s_, 0, 1], [0, s_, 1], [0, 0, 1]]) for s_ in (0.69, 0.7, 1.3, 1.31)]
+    cases += [np.array([[1, 0, 0], [0, 1, 0], [q, 0, 1]]) for q in (9.99e-4, 1e-3, 1.001e-3)]
+    cases = [c.astype(np.float32) for c in cases]
+    v_card = [m.validate_homography(c) for c in cases]
+    v_cpu = [cpu_m.validate_homography(c) for c in cases]
+    check(v_card == v_cpu and 0 < sum(v_card) < len(cases),
+          f"surface: validate_homography card {v_card}, CPU {v_cpu}")
+    # the same history on both (the card's holds the window run's)
+    cpu_m.state = cpu_m.state._replace(hbuf=m.state.hbuf.cpu(), hcount=m.state.hcount.cpu())
+    rng = np.random.RandomState(SEED + 6)
+    s_err = 0.0
+    for _ in range(8):
+        Hs = (np.eye(3) + rng.randn(3, 3) * [[0.01, 0.01, 2], [0.01, 0.01, 2], [1e-5, 1e-5, 0]])
+        Hs = Hs.astype(np.float32)
+        s_err = max(s_err, float(np.abs(m.smooth_homography(Hs) - cpu_m.smooth_homography(Hs)).max()))
+    same_hist = bool(np.array_equal(m.state.hbuf.cpu().numpy(), cpu_m.state.hbuf.numpy()))
+    check(s_err <= 1e-6 and same_hist and int(m.state.hcount) == int(cpu_m.state.hcount),
+          f"surface: smooth_homography off by {s_err}, history equal {same_hist}")
+    m.state = saved
+
+    # run_mosaic(visualize=True): matches.jpg of the first window's last pair
+    clip = os.path.join(tmp, "surface.npy")
+    np.save(clip, frames)
+    viz = os.path.join(tmp, "surface_viz")
+    kernels.reset_launches()
+    run_mosaic(clip, config=MosaicConfig(window_size=WINDOW), detector_type="sift", visualize=True,
+               viz_dir=viz)
+    torch.cuda.synchronize()
+    viz_counts = dict(kernels.launches)
+    # the stitch's 3 and 4, and one patch launch for render_matches' two frames
+    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 2}
+    check(viz_counts == want, f"surface: visualize run launches {viz_counts}, expected {want}")
+    dims = jpeg_dims(os.path.join(viz, "matches.jpg"))
+    check(dims == (FRAME_H, 2 * FRAME_W) and os.listdir(viz) == ["matches.jpg"],
+          f"surface: {os.listdir(viz)}, matches.jpg {dims}")
+    phase("surface", t0,
+          f"warp of frame {n}: launches {warp_counts}, canvas equal to warp_plain's, "
+          f"{warp_ms:.2f} ms; findHomography within {h_err:.2e} of H, 200/200 inliers; "
+          f"validate_homography equal to the CPU's on {len(cases)} H's; smooth_homography "
+          f"within {s_err:.1e} over 8 calls, history equal; visualize run: launches "
+          f"{viz_counts}, matches.jpg {dims}; on {card}")
+    return {"surface": warp_counts, "surface_viz": viz_counts}
+
+
+def _png_stored(img_bgr: np.ndarray) -> bytes:
+    """A minimal RGB PNG of a BGR image: filter 0 rows, stored deflate."""
+    import struct
+    import zlib
+
+    h, w, _ = img_bgr.shape
+    raw = b"".join(b"\x00" + img_bgr[y, :, ::-1].tobytes() for y in range(h))
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 0)) + chunk(b"IEND", b""))
+
+
+IMAGES_MIN_JPEG_PSNR = 32.0  # io/jpeg.py's round trip of these images: 33.11 and 33.87 dB on a CPU
+
+
+def _by_source(dets: list) -> dict:
+    out = {"world": [], "yolo": [], "classical": []}
+    for d in dets:
+        out[d.get("source", "world")].append(d)
+    return out
+
+
+def phase_images(torch, dev, tmp: str, card: str) -> dict:
+    """The CLI's mosaic --images-dir on three seeded 360x640 images (two
+    JPEGs from io/jpeg.py, one stored-deflate PNG): the six Detections/
+    files and their sizes, the decoded images against the sources, each
+    image's open-vocabulary and classical detections against the port's
+    float32 run on the CPU (images this small get no closed-set pass)."""
+    from rtvm_tpu_torch import cli
+    from rtvm_tpu_torch.config import PipelineConfig
+    from rtvm_tpu_torch.detect.detector import ObjectDetector
+    from rtvm_tpu_torch.io.imread import imread
+    from rtvm_tpu_torch.io.jpeg import encode_jpg
+    from rtvm_tpu_torch.utils.image import psnr
+
+    t0 = time.time()
+    world = make_nav_world(np.random.RandomState(SEED + 3), FRAME_H, 3 * FRAME_W)
+    imgs = {"a.jpg": world[:, :FRAME_W], "b.jpg": world[:, FRAME_W : 2 * FRAME_W],
+            "c.png": world[:, 2 * FRAME_W :]}
+    src = os.path.join(tmp, "images")
+    os.makedirs(src)
+    for name, img in imgs.items():
+        img = np.ascontiguousarray(img)
+        imgs[name] = img
+        with open(os.path.join(src, name), "wb") as f:
+            f.write(_png_stored(img) if name.endswith(".png") else encode_jpg(img))
+    decoded = {name: imread(os.path.join(src, name)) for name in imgs}
+    decode_ms = {}
+    for name in imgs:  # the reader runs on the host: the best of 3
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            imread(os.path.join(src, name))
+            times.append((time.perf_counter() - t) * 1e3)
+        decode_ms[name] = min(times)
+    check(np.array_equal(decoded["c.png"], imgs["c.png"]), "images: the PNG does not decode to its source")
+    jpeg_db = {n: psnr(decoded[n], imgs[n]) for n in ("a.jpg", "b.jpg")}
+    check(min(jpeg_db.values()) >= IMAGES_MIN_JPEG_PSNR, f"images: JPEG round trip PSNR {jpeg_db}")
+
+    out = os.path.join(tmp, "images_out")
+    t = time.time()
+    res = cli.main(["mosaic", "--images-dir", src, "--output-dir", out])
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    files = sorted(os.listdir(os.path.join(out, "Detections")))
+    want_files = sorted(f"{os.path.splitext(n)[0]}_{k}.jpg" for n in imgs for k in ("detected", "navigation"))
+    check(files == want_files, f"images: Detections/ holds {files}")
+    for f in files:
+        dims = jpeg_dims(os.path.join(out, "Detections", f))
+        check(dims == (FRAME_H, FRAME_W), f"images: {f} is {dims}")
+    check([os.path.basename(r["image"]) for r in res] == sorted(imgs), f"images: results {res}")
+
+    ref = ObjectDetector(model=PipelineConfig().detect.model, device="cpu")
+    ref._infer_fn = lambda imgsz, conf, iou: ObjectDetector._infer_fn(ref, imgsz, conf, iou,
+                                                                     torch.float32)
+    # detect_objects runs its closed-set YOLO pass only on the tiles of an
+    # image wider or taller than 800 px; at 360x640 it does not run (phase
+    # navigate holds that pass against the CPU on the mosaic's tiles)
+    bounds = {"world": NAV_WORLD_MATCH, "classical": NAV_CLASSICAL_MATCH}
+    agree, failed = {}, []
+    for r in res:
+        name = os.path.basename(r["image"])
+        want = _by_source(ref.detect_objects(decoded[name]))
+        got = _by_source(r["detections"])
+        check(not got["yolo"] and not want["yolo"], f"images: a closed-set pass ran on {name}")
+        for k, (smin, gap) in bounds.items():
+            share = _dict_share(want[k], got[k], 0.9, gap)
+            agree[f"{name} {k}"] = (round(share, 4), len(got[k]), len(want[k]))
+            if share < smin:
+                failed.append(f"{name} {k} {agree[f'{name} {k}']}")
+    check(not failed, "images: card against the CPU float32 run: " + ", ".join(failed))
+    n_det = sum(len(r["detections"]) for r in res)
+    check(n_det >= 3, f"images: {n_det} detections on three images")
+    phase("images", t0,
+          f"3 images (JPEG PSNR {', '.join(f'{k} {v:.2f} dB' for k, v in jpeg_db.items())}, PNG "
+          f"equal), decoded on the host in " + ", ".join(f"{k} {v:.1f} ms" for k, v in decode_ms.items())
+          + f"; the CLI's --images-dir in {wall:.3f} s: {len(files)} files of "
+          f"{FRAME_H}x{FRAME_W}, {n_det} detections; card against CPU float32 (share, card, CPU): "
+          + ", ".join(f"{k} {v}" for k, v in agree.items()) + f"; on {card}")
+    return {"warp": 0, "patches": 0}
+
+
+STREAM_H, STREAM_W = 1080, 1920  # BASELINE config 5
+STREAM_STEP = (18, -12)  # px a frame: `grow`'s (6, -4) at 3x the frame size
+STREAM_DET = ("yolov8l", "weights/yolov8l_aerial.npz", (768, 1280))
+STREAM_DET_FRAMES = [0, 40]
+
+
+def make_stream_world(rng: np.random.RandomState, h: int, w: int) -> np.ndarray:
+    """A 1080p-scale BGR world: make_world at a third of the size,
+    upsampled 3x (bilinear), with sparse sharp rectangles at full size."""
+    import torch
+
+    base = make_world(rng, h // 3 + 2, w // 3 + 2)
+    up = torch.nn.functional.interpolate(torch.from_numpy(base).permute(2, 0, 1)[None].float(),
+                                         scale_factor=3, mode="bilinear", align_corners=False)
+    img = up[0].permute(1, 2, 0).numpy()[:h, :w].copy()
+    for _ in range(h * w // 12000):
+        y, x = rng.randint(0, h - 90), rng.randint(0, w - 90)
+        img[y : y + rng.randint(12, 90), x : x + rng.randint(12, 90)] = rng.uniform(0, 255, 3)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def phase_stream_1080p(torch, dev, card: str) -> tuple:
+    """BASELINE config 5: a 1080p clip drifting STREAM_STEP px a frame, the
+    pre-scan at stride 8 sizing the canvas, ORB, windows of 16, and one
+    process_clip over the 3 windows with det_fn = YOLOv8l's _infer_fn at
+    (768, 1280) in bf16 with the bundled checkpoint. Returns (launch counts,
+    kernel A's numbers on the run's last window)."""
+    from rtvm_tpu_torch import kernels
+    from rtvm_tpu_torch.config import MosaicConfig
+    from rtvm_tpu_torch.detect.detector import ObjectDetector
+    from rtvm_tpu_torch.models.yolo.postprocess import Detections, match_detections
+    from rtvm_tpu_torch.mosaic.prescan import prescan_canvas
+    from rtvm_tpu_torch.mosaic.stitcher import VideMosaic
+    from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch, warp_plain
+
+    t0 = time.time()
+    model, ckpt, det_hw = STREAM_DET
+    check(os.path.exists(ckpt), f"stream_1080p: {ckpt} is not in this checkout")
+    n = N_WINDOWS * WINDOW
+    path = camera_path(n + 1, STREAM_STEP)
+    world = make_stream_world(np.random.RandomState(SEED + 7), STREAM_H + int(path[:, 1].max()) + 8,
+                              STREAM_W + int(path[:, 0].max()) + 8)
+    frames = np.stack([world[y : y + STREAM_H, x : x + STREAM_W] for x, y in path])
+    t = time.time()
+    pre = prescan_canvas(iter(frames), (STREAM_H, STREAM_W), stride=8, device=dev)
+    prescan_s = time.time() - t
+    check(pre is not None, "stream_1080p: the pre-scan could not track the clip")
+    cfg = MosaicConfig(window_size=WINDOW, canvas_hw=pre[0], seed_offset=pre[1])
+    t = time.time()
+    det = ObjectDetector(model, weights_path=ckpt, load_world=False, device=dev)
+    load_s = time.time() - t
+    check(det.weights_loaded and det.weights_source == ckpt,
+          f"stream_1080p: weights_loaded {det.weights_loaded}, source {det.weights_source}")
+    det_fn = det._infer_fn(det_hw, DET_CONF, DET_IOU)
+    wins = torch.as_tensor(frames[1:]).reshape(N_WINDOWS, WINDOW, STREAM_H, STREAM_W, 3).to(dev)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t = time.time()
+    m = VideMosaic(frames[0], detector_type="orb", config=cfg, seed=SEED, device=dev)
+    aux, dets = m.process_clip(wins, det_fn=det_fn)
+    torch.cuda.synchronize()
+    first_s = time.time() - t
+    counts = dict(kernels.launches)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"warp": N_WINDOWS, "patches": 0}
+    check(counts == want, f"stream_1080p: launch counts {counts}, expected {want}")
+    ok = (aux.blended & aux.ok).reshape(n).cpu().numpy()
+    check(int(ok.sum()) >= MIN_ACCEPTED, f"stream_1080p: {int(ok.sum())} of {n} frames accepted")
+    H_abs = aux.H_abs.reshape(n, 3, 3).cpu().numpy()
+    shift = path[1:] - path[0] + np.array([m.h_offset, m.w_offset])
+    err = corner_error(H_abs[ok], shift[ok], STREAM_H, STREAM_W)
+    check(err <= TRAJ_TOL_PX, f"stream_1080p: corners off by {err:.3f} px")
+    for f, v in dets._asdict().items():
+        check(tuple(v.shape[:3]) == (N_WINDOWS, WINDOW, 300), f"stream_1080p: {f} {tuple(v.shape)}")
+
+    # warm: stitch + detection again, timed; then its copies by direction
+    m2 = VideMosaic(frames[0], detector_type="orb", config=cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    t = time.time()
+    m2.process_clip(wins, det_fn=det_fn)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t
+    m3 = VideMosaic(frames[0], detector_type="orb", config=cfg, seed=SEED, device=dev)
+    cp = _copies(torch, lambda: m3.process_clip(wins, det_fn=det_fn))
+    check(cp["HtoD"] == 0, f"stream_1080p: the fused clip with det_fn copies to the card: {cp}")
+    flat = wins.reshape((n,) + wins.shape[2:])
+    det_ms = cuda_ms(torch, lambda: det_fn(flat), reps=3, warmup=1)
+
+    # bf16 detections of 2 frames against the card's own float32 run
+    pick = wins.reshape((n,) + wins.shape[2:])[STREAM_DET_FRAMES]
+    (fb, fc), _ = det.head_logits(pick, det_hw, torch.float32)
+    (bb, bc), _ = det.head_logits(pick, det_hw, torch.bfloat16)
+    ref_l = torch.cat([x.flatten() for x in fb + fc]).float()
+    rel = float((torch.cat([x.flatten() for x in bb + bc]).float() - ref_l).abs().max()
+                / ref_l.abs().max())
+    want_d = det._infer_fn(det_hw, DET_CONF, DET_IOU, torch.float32)(pick)
+    got_d = Detections(*(v.reshape((n,) + v.shape[2:])[STREAM_DET_FRAMES] for v in dets))
+    a = match_detections(want_d, got_d)
+    rel_max, share_min, gap_max = DET_BOUNDS["bfloat16"]
+    check(rel <= rel_max and a["share"] >= share_min and a["max_score_gap"] <= gap_max,
+          f"stream_1080p: bf16 against float32: logits {rel:.3e}, {a}")
+
+    # kernel A on the run's last window: bitwise equal, then timed
+    hc, wc = pre[0]
+    fr = wins[-1].to(torch.float32).permute(0, 3, 1, 2).contiguous()
+    G = inverse_maps(aux.H_abs[-1]).contiguous()
+    out_k = warp_batch(fr, G, hc, wc)
+    out_p = warp_plain(fr, G, hc, wc)
+    torch.cuda.synchronize()
+    a_err = float((out_k - out_p).abs().max())
+    check(torch.equal(out_k, out_p), f"stream_1080p: kernel A vs plain on 1080p maps: max |d| {a_err}")
+    del out_p
+    a_lib, a_lib_err = grid_sample_ms(torch, fr, G, hc, wc, out_k)
+    del out_k
+    a_ms = cuda_ms(torch, lambda: warp_batch(fr, G, hc, wc), reps=10)
+    a_plain = cuda_ms(torch, lambda: warp_plain(fr, G, hc, wc), reps=2, warmup=1)
+    a_dev = device_ms(torch, lambda: warp_batch(fr, G, hc, wc), "rtvm_warp_bilinear_kernel", reps=5)
+    b = fr.shape[0]
+    a_bound, a_by = bound(b * (3 * STREAM_H * STREAM_W * 4 + 36) + b * 3 * hc * wc * 4,
+                          b * hc * wc * (12 + 3 * 12))
+    row = {"frames": [b, 3, STREAM_H, STREAM_W], "canvas": [hc, wc], "ms": a_ms, "device_ms": a_dev,
+           "plain_ms": a_plain, "bound_ms": a_bound, "bound_by": a_by, "library_ms": a_lib,
+           "max_abs_err": a_err}
+    phase("stream_1080p", t0,
+          f"{n + 1} frames of {STREAM_H}x{STREAM_W} drifting {STREAM_STEP} px a frame; pre-scan "
+          f"(stride 8) {prescan_s * 1e3:.1f} ms -> canvas {pre[0]}, seed {pre[1]}; {model} loaded "
+          f"in {load_s:.2f} s; process_clip with det_fn at {det_hw} bf16: {int(ok.sum())}/{n} "
+          f"accepted, corners within {err:.4f} px, launches {counts}, detections "
+          f"{tuple(dets.boxes.shape)} ({int(dets.valid.sum())} valid); {n / first_s:.2f} frames/s "
+          f"first call, {n / warm_s:.2f} warm; copies in a warm call {cp}; {model} "
+          f"{det_ms:.2f} ms per {n} frames ({det_ms / N_WINDOWS:.2f} ms a window); peak "
+          f"{peak / 2**20:.1f} MiB; bf16 vs the card's float32 on frames {STREAM_DET_FRAMES}: "
+          f"logits {rel:.3e} of the largest, {a['matched_got']}/{a['n_got']} and "
+          f"{a['matched_ref']}/{a['n_ref']} matched, score gap {a['max_score_gap']:.3e}; kernel A "
+          f"on the last window's maps (B={b}, canvas {hc}x{wc}): bitwise equal to warp_plain, "
+          f"{a_ms:.4f} ms (on the card {fmt_ms(a_dev)}), plain {a_plain:.4f} ms, grid_sample "
+          f"{a_lib:.4f} ms (within {a_lib_err:.2e} of the kernel), bound "
+          f"{a_bound:.4f} ms ({a_by}), {a_bound / a_ms:.3f} of it; on {card}")
+    return counts, row
+
+
+def layered_clip(rng: np.random.RandomState, n: int, h: int, w: int, rates) -> np.ndarray:
+    """Frames of a camera translating along +x past textured fronto-parallel
+    layers, one for each rate (an image shifted by `rate` px a frame: depth
+    in inverse proportion), the first whole, the others patches, nearer
+    layers occluding farther ones. A sample of points from one plane leaves
+    the essential matrix undetermined; with many depths no plane holds most
+    of the points."""
+    big = w + rates[-1] * (n - 1) + 8
+    layers = []
+    for k, r in enumerate(rates):
+        tex = np.clip(_blur_axis(_blur_axis(rng.uniform(0, 255, (h, big, 3)), 1.0, 0), 1.0, 1), 0, 255)
+        alpha = np.ones((h, big), bool) if k == 0 else np.zeros((h, big), bool)
+        if k:
+            for _ in range(big * h // 4000):
+                x, y = rng.randint(0, big - 60), rng.randint(0, h - 60)
+                alpha[y : y + rng.randint(20, 60), x : x + rng.randint(20, 60)] = True
+        layers.append((tex.astype(np.uint8), alpha, r))
+    frames = np.zeros((n, h, w, 3), np.uint8)
+    for i in range(n):
+        for tex, alpha, r in layers:
+            x0 = r * i
+            frames[i] = np.where(alpha[:, x0 : x0 + w, None], tex[:, x0 : x0 + w], frames[i])
+    return frames
+
+
+SLAM_FRAMES = 60
+SLAM_RATES = tuple(range(1, 15))  # px a frame: 14 depths, none holding most of the points
+SLAM_POS_TOL = 1e-2  # unit-length steps
+SLAM_ANGLE_DEG = 10.0
+
+
+def phase_slam(torch, dev, tmp: str, card: str) -> dict:
+    """The CLI's slam command on a 360x640 layered clip of the camera moving
+    along +x: the saved trajectory, tracks and poses every frame, the path's
+    direction against the truth; the tracked counts, the tracked points and
+    every position against the port's CPU run."""
+    import rtvm_tpu_torch.slam.vo as vo_mod
+    from rtvm_tpu_torch import cli
+    from rtvm_tpu_torch.slam.runner import run_slam_on_video
+
+    t0 = time.time()
+    frames = layered_clip(np.random.RandomState(SEED + 8), SLAM_FRAMES + 1, FRAME_H, FRAME_W,
+                          SLAM_RATES)
+    clip = os.path.join(tmp, "slam.npy")
+    np.save(clip, frames)
+    out = os.path.join(tmp, "slam_out")
+    # the VO's detector on the card against the CPU: the RANSAC draws index
+    # the keypoints by slot, so the two must rank them alike
+    from rtvm_tpu_torch.ops import color
+    from rtvm_tpu_torch.ops.features.fast import detect_fast
+
+    kp = [detect_fast(color.bgr2gray(torch.as_tensor(frames[::20], device=d)), 2000, 20.0, 16, 9)
+          for d in (dev, "cpu")]
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(*kp)),
+          "slam: FAST keypoints on the card differ from the CPU's")
+    seen, seen_cpu = [], []  # each frame's counts and the points to track from
+    into = [seen]
+    real = vo_mod.VisualOdometry.process_frame
+
+    def recording(self, frame):
+        pose = real(self, frame)
+        into[0].append((self.last_num_tracked, self.last_ok, self.pts.cpu().numpy(),
+                        self.pts_valid.cpu().numpy()))
+        return pose
+
+    vo_mod.VisualOdometry.process_frame = recording
+    try:
+        torch.cuda.synchronize()
+        t = time.time()
+        slam, traj = cli.main(["slam", clip, "--output-dir", out, "--max-frames", str(SLAM_FRAMES)])
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        into[0] = seen_cpu
+        t = time.time()
+        _, cpu = run_slam_on_video(clip, os.path.join(tmp, "slam_cpu"), max_frames=SLAM_FRAMES,
+                                   device="cpu")
+        cpu_s = time.time() - t
+    finally:
+        vo_mod.VisualOdometry.process_frame = real
+    check(slam.vo.device.type == "cuda", f"slam: ran on {slam.vo.device}")
+    npy = np.load(os.path.join(out, "slam_trajectory_final.npy"))
+    with open(os.path.join(out, "slam_trajectory_final.txt")) as f:
+        lines = f.read().splitlines()
+    check(npy.shape == (SLAM_FRAMES, 3) and np.array_equal(npy, traj) and len(lines) == 3 + SLAM_FRAMES
+          and lines[0] == "# SLAM trajectory: slam.npy"
+          and lines[1] == f"# frames: {SLAM_FRAMES}, keyframes: {len(slam.keyframes)}",
+          f"slam: npy {npy.shape}, txt {lines[:2]} and {len(lines)} lines")
+    tracked = [c[0] for c in seen[1:]]
+    n_ok = sum(c[1] for c in seen[1:])
+    check(min(tracked) > 8 and n_ok >= 50, f"slam: tracked {min(tracked)}-{max(tracked)}, {n_ok} poses")
+    d = traj[-1] - traj[0]
+    angle = float(np.degrees(np.arccos(np.clip(d[0] / max(np.linalg.norm(d), 1e-12), -1, 1))))
+    check(angle <= SLAM_ANGLE_DEG, f"slam: the path runs {angle:.2f} degrees off +x: {d}")
+    same_counts = [c[0] for c in seen_cpu] == [c[0] for c in seen]
+    pts_err = [float(np.abs(a[2] - b[2])[a[3] & b[3]].max(initial=0.0)) for a, b in zip(seen, seen_cpu)]
+    lk_err = max(pts_err)
+    lk_first = next((i for i, e in enumerate(pts_err) if e > 0), None)
+    pos_err = float(np.abs(cpu - traj).max())
+    parting = (np.flatnonzero(np.abs(np.diff(cpu - traj, axis=0)).max(axis=1) > SLAM_POS_TOL) + 1)
+    check(same_counts and pos_err <= SLAM_POS_TOL,
+          f"slam: against the CPU run: tracked counts equal {same_counts}, positions within "
+          f"{pos_err:.3e} (the steps to frames {parting.tolist()} part), tracked points within "
+          f"{lk_err:.3e} px (first apart after frame {lk_first})")
+    d_cpu = cpu[-1] - cpu[0]
+    angle_cpu = float(np.degrees(np.arccos(np.clip(d_cpu[0] / max(np.linalg.norm(d_cpu), 1e-12), -1, 1))))
+    check(angle_cpu <= SLAM_ANGLE_DEG, f"slam: the CPU run's path runs {angle_cpu:.2f} degrees off +x")
+    phase("slam", t0,
+          f"{SLAM_FRAMES} frames of {FRAME_H}x{FRAME_W} in {wall:.3f} s ({wall / SLAM_FRAMES * 1e3:.1f} "
+          f"ms a frame, the CLI end to end); tracked {min(tracked)}-{max(tracked)} a frame, "
+          f"{n_ok}/{SLAM_FRAMES - 1} poses, {len(slam.keyframes)} keyframes; path {angle:.2f} "
+          f"degrees off the camera's +x (the CPU run's {angle_cpu:.2f}); against the CPU run: "
+          f"FAST keypoints equal, tracked counts equal, tracked points within {lk_err:.3e} px, "
+          f"positions within "
+          f"{pos_err:.3e} ({cpu_s / SLAM_FRAMES * 1e3:.0f} ms a frame there); on {card}")
+    return {"warp": 0, "patches": 0}
+
+
+def phase_terrain(torch, dev, tmp: str, card: str) -> dict:
+    """The CLI's terrain command on a seeded soil image (a JPEG): every class
+    string equal to the CPU run's, every number within 1e-4 relative, and the
+    picture at (h, w + 360)."""
+    from rtvm_tpu_torch import cli
+    from rtvm_tpu_torch.io.imread import imread
+    from rtvm_tpu_torch.io.jpeg import encode_jpg
+    from rtvm_tpu_torch.slam.terrain import TerrainSoilAnalyzer
+
+    t0 = time.time()
+    rng = np.random.RandomState(0)  # tests/test_terrain.py's _soil_image((60, 90, 120))
+    img = np.clip(np.full((200, 260, 3), (60, 90, 120), np.float32) + rng.randn(200, 260, 3) * 8,
+                  0, 255).astype(np.uint8)
+    img[:, :130] = (40, 160, 50)  # half of it green, as in its vegetation test
+    src = os.path.join(tmp, "soil.jpg")
+    with open(src, "wb") as f:
+        f.write(encode_jpg(img))
+    out = os.path.join(tmp, "terrain.jpg")
+    t = time.time()
+    res = cli.main(["terrain", src, "--output", out])
+    wall = time.time() - t
+    want = TerrainSoilAnalyzer(device="cpu").analyze_image(imread(src))
+    bad = []
+
+    def close(a, b, path):
+        if isinstance(b, dict):
+            if set(a) != set(b):
+                bad.append(path)
+            for k in b:
+                close(a.get(k), b[k], f"{path}.{k}")
+        elif isinstance(b, (list, tuple)):
+            if len(a) != len(b):
+                bad.append(path)
+            for i, (x, y) in enumerate(zip(a, b)):
+                close(x, y, f"{path}[{i}]")
+        elif isinstance(b, str):
+            if a != b:
+                bad.append(f"{path}: {a!r} != {b!r}")
+        elif abs(a - b) > 1e-4 * max(1.0, abs(b)):
+            bad.append(f"{path}: {a} vs {b}")
+
+    close(res, want, "result")
+    check(not bad, f"terrain: card against CPU: {bad}")
+    dims = jpeg_dims(out)
+    check(dims == (200, 260 + 360), f"terrain: {out} is {dims}")
+    phase("terrain", t0,
+          f"{res['soil_type']} ({res['confidence']:.4f}), moisture {res['moisture_class']}, "
+          f"vegetation {res['vegetation_class']} ({res['vegetation_cover']:.4f}), erosion "
+          f"{res['erosion_class']}; every class equal to the CPU run's and every number within "
+          f"1e-4; picture {dims}; the CLI {wall * 1e3:.1f} ms; on {card}")
+    return {"warp": 0, "patches": 0}
+
+
 def _timed_build(build):
     t = time.time()
     return build(), time.time() - t
@@ -1258,7 +1808,13 @@ def main() -> int:
             by_path["pipeline_fused"] = phase_pipeline_fused(torch, clip, card, det["yolo11n"])
             by_path["grow"] = phase_grow(torch, dev, tmp, card)
             by_path["navigate"] = phase_navigate(torch, dev, tmp, card)
+            by_path.update(phase_surface(torch, dev, frames, sift_m, sift_auxs, tmp, card))
+            by_path["images"] = phase_images(torch, dev, tmp, card)
+            by_path["stream_1080p"], row_a_1080p = phase_stream_1080p(torch, dev, card)
+            by_path["slam"] = phase_slam(torch, dev, tmp, card)
+            by_path["terrain"] = phase_terrain(torch, dev, tmp, card)
         row_a = warp_real(torch, dev, frames[1 : 1 + WINDOW], sift_auxs[0].H_abs, hc, wc)
+        row_a["at_1080p"] = row_a_1080p
         for row, key in ((row_a, "warp"), (row_b, "patches")):
             row["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
             row["launches"] = sum(row["launches_by_path"].values())

@@ -6,7 +6,9 @@ with either detector, SIFT or ORB, the per-frame YOLO detection that
 (``detect.detector.ObjectDetector``, ``models.yolo``), the pipeline driver
 (``pipelines.mosaic_pipeline``, ``cli``), the detection on the mosaic (the
 open-vocabulary ``models.yolo.world``, CLAHE, tiles, ``detect.classical``) and
-the navigation map (``navigate``). The two kernels the JAX package wrote in
+the navigation map (``navigate``), the image-directory route
+(``pipelines.images_pipeline`` with the JPEG/PNG reader ``io.imread``), and
+visual odometry, SLAM and the terrain analysis (``slam``). The two kernels the JAX package wrote in
 Pallas for the TPU are hand-written CUDA here (``csrc/warp.cu``,
 ``csrc/patches.cu``), built with ``nvcc`` at first use and loaded with ctypes
 (``kernels.py``). The host algorithms the JAX package borrows from cv2 and its

@@ -119,8 +119,10 @@ def preprocess_frames(frames_u8: torch.Tensor, imgsz) -> Tuple[torch.Tensor, flo
 
 def unletterbox_boxes(boxes: torch.Tensor, scale: float, py: int, px: int) -> torch.Tensor:
     """Map boxes from letterboxed coordinates back to the original image's pixels."""
-    off = torch.tensor([px, py, px, py], dtype=boxes.dtype).to(boxes.device)
-    return (boxes - off) / scale
+    out = boxes.clone()  # Python scalars: no tensor of offsets to copy to the device
+    out[..., 0::2] -= px
+    out[..., 1::2] -= py
+    return out / scale
 
 
 def match_detections(ref: Detections, got: Detections, iou_min: float = 0.9) -> dict:

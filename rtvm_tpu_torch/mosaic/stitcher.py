@@ -46,12 +46,6 @@ from rtvm_tpu_torch.ops.features import sift as sift_ops
 from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch
 from rtvm_tpu_torch.utils import draw
 
-DEBUG_ARTIFACTS_NOT_PORTED = (
-    "the matches.jpg debug artifact that output_dir with visualize asks for (render_matches) "
-    "is not ported yet (ROADMAP.md, Queue 1 item 3); pass visualize=False or output_dir=None"
-)
-
-
 class MosaicState(NamedTuple):
     """Full resumable pipeline state (the same fields as the JAX package's)."""
 
@@ -307,11 +301,10 @@ class VideMosaic:
 
     Frames are BGR uint8 arrays of a fixed shape (set by the first frame), or
     uint8 tensors already on the device. Runs on ``device`` (``cuda`` unless
-    the caller asks for another). With ``output_dir`` and
-    ``show_intermediate``, every fourth window writes
-    ``mosaic_progress.jpg`` there, as the JAX class does; the
-    ``matches.jpg`` that ``visualize`` adds is not ported, and
-    ``output_dir`` with ``visualize`` raises."""
+    the caller asks for another). With ``output_dir``, every fourth window
+    writes ``mosaic_progress.jpg`` there when ``show_intermediate`` is on and
+    ``matches.jpg`` (``render_matches`` of the window's last two frames)
+    when ``visualize`` is on, as the JAX class does."""
 
     def __init__(
         self,
@@ -326,8 +319,6 @@ class VideMosaic:
         seed: int = 0,
         device=None,
     ):
-        if output_dir and visualize:
-            raise NotImplementedError(DEBUG_ARTIFACTS_NOT_PORTED)
         if config is None:
             config = MosaicConfig(
                 output_height_times=output_height_times,
@@ -411,7 +402,7 @@ class VideMosaic:
         pad = (0, 0)
         if self.config.auto_grow:
             pad = self._maybe_grow(aux)
-        if self.output_dir and self.show_intermediate:
+        if self.output_dir and (self.visualize or self.show_intermediate):
             # a full-canvas read every fourth window, as the JAX class throttles it
             self._windows_seen = getattr(self, "_windows_seen", 0) + 1
             if self._windows_seen % 4 == 1:
@@ -532,15 +523,124 @@ class VideMosaic:
             draw.line(image, tuple(c[i]), tuple(c[i - 1]), color, thickness)
         return image
 
+    def render_matches(self, frame_prev, frame_cur) -> np.ndarray:
+        """cv2.drawMatches-style picture of a frame pair: the current frame
+        left of the previous one, each match a radius-3 circle at both ends
+        and a line between them, in colours drawn from
+        ``np.random.RandomState(0)`` in the JAX class's order. The features
+        and matches are recomputed on the device and read once."""
+        fc, fp = self._frames(frame_cur), self._frames(frame_prev)
+        kp, desc, valid = _extract_features(color.bgr2gray(torch.stack([fc, fp])), self.config)
+        m = _match_pairs(desc[:1], valid[:1], desc[1:], valid[1:], self.config)
+        src, dst, ok = match_ops.gather_correspondences(kp[:1], kp[1:], m)
+        host = torch.cat([src[0], dst[0], ok[0, :, None].to(src.dtype)], dim=1).cpu().numpy()
+        src, dst, ok = host[:, :2], host[:, 2:4], host[:, 4] > 0
+        h1, w1 = fc.shape[:2]
+        h2, w2 = fp.shape[:2]
+        canvas = np.zeros((max(h1, h2), w1 + w2, 3), np.uint8)
+        canvas[:h1, :w1] = fc.cpu().numpy()
+        canvas[:h2, w1:] = fp.cpu().numpy()
+        rng = np.random.RandomState(0)
+        for s, d in zip(src[ok], dst[ok]):
+            colr = tuple(int(v) for v in rng.randint(64, 255, 3))
+            p1 = (int(s[0]), int(s[1]))
+            p2 = (int(d[0]) + w1, int(d[1]))
+            draw.circle(canvas, p1, 3, colr, 1)
+            draw.circle(canvas, p2, 3, colr, 1)
+            draw.line(canvas, p1, p2, colr, 1)
+        return canvas
+
     def _dump_intermediate(self, frames, aux: WindowAux, pad=(0, 0)) -> None:
-        """mosaic_progress.jpg in output_dir: the canvas with the window's
-        last frame's border. `pad` is the (left, top) growth applied after
-        the step; aux.H_abs is in the canvas coordinates from before it."""
+        """Debug pictures in output_dir: mosaic_progress.jpg (the canvas with
+        the window's last frame's border) with show_intermediate, and
+        matches.jpg (the window's last frame pair) with visualize. `pad` is
+        the (left, top) growth applied after the step; aux.H_abs is in the
+        canvas coordinates from before it."""
         os.makedirs(self.output_dir, exist_ok=True)
-        img = self.output_img_u8.copy()
-        corners = self.get_transformed_corners(frames[-1], aux.H_abs[-1])
-        self.draw_border(img, corners + np.asarray(pad, corners.dtype))
-        imwrite_jpg(os.path.join(self.output_dir, "mosaic_progress.jpg"), img)
+        if self.show_intermediate:
+            img = self.output_img_u8.copy()
+            corners = self.get_transformed_corners(frames[-1], aux.H_abs[-1])
+            self.draw_border(img, corners + np.asarray(pad, corners.dtype))
+            imwrite_jpg(os.path.join(self.output_dir, "mosaic_progress.jpg"), img)
+        if self.visualize and len(frames) >= 2:
+            imwrite_jpg(os.path.join(self.output_dir, "matches.jpg"),
+                        self.render_matches(frames[-2], frames[-1]))
+
+    @staticmethod
+    def findHomography(src_pts, dst_pts, seed: int = 0, samples=None, device=None):
+        """Homography from correspondences [N, 2] by RANSAC (the window
+        step's settings) -> (H [3, 3], inliers [N]) as numpy arrays. The
+        hypotheses are `samples` [512, 4] when given (e.g. from the JAX
+        package's draws), else drawn from a CPU generator seeded with
+        `seed`, so the card and the CPU draw the same ones."""
+        dev = resolve_device(device)
+        src = torch.as_tensor(np.asarray(src_pts), dtype=torch.float32).reshape(-1, 2).to(dev)
+        dst = torch.as_tensor(np.asarray(dst_pts), dtype=torch.float32).reshape(-1, 2).to(dev)
+        valid = torch.ones((src.shape[0],), dtype=torch.bool, device=dev)
+        if samples is None:
+            g = torch.Generator()
+            g.manual_seed(_pair_seed(seed, 0))
+            samples = geo.sample_indices(torch.rand((512, src.shape[0]), generator=g).to(dev), valid)
+        res = geo.ransac_homography(src, dst, valid, samples=torch.as_tensor(samples).to(dev))
+        return res.H.cpu().numpy(), res.inliers.cpu().numpy()
+
+    def process_first_frame(self, first_image) -> None:
+        """Make `first_image`'s features the next match target."""
+        kp, desc, valid = _extract_features(color.bgr2gray(self._frames(first_image))[None],
+                                            self.config)
+        self.state = self.state._replace(kp=kp[0], desc=desc[0], kp_valid=valid[0])
+
+    def match(self, des_cur, des_prev, valid_cur=None, valid_prev=None) -> match_ops.Matches:
+        """Match the current frame's descriptors [K, D] against the previous
+        frame's with the detector's matcher (all valid by default)."""
+        def tensor(x):
+            if torch.is_tensor(x):
+                return x.to(self.device)
+            x = np.asarray(x)
+            # ORB's packed uint32 words keep their bit pattern as int32
+            return torch.from_numpy(x.view(np.int32) if x.dtype == np.uint32 else x).to(self.device)
+
+        def flags(v, d):
+            if v is None:
+                return torch.ones((d.shape[0],), dtype=torch.bool, device=self.device)
+            return tensor(v)
+
+        dc, dp = tensor(des_cur), tensor(des_prev)
+        return _match_pairs(dc, flags(valid_cur, dc), dp, flags(valid_prev, dp), self.config)
+
+    def validate_homography(self, H) -> bool:
+        """The window step's anti-shake check of a relative homography, read
+        on the host."""
+        st = self.config.stabilization
+        return bool(geo.validate_homography(self._h(H), st.translation_threshold,
+                                            st.scale_threshold, st.perspective_threshold))
+
+    def smooth_homography(self, H) -> np.ndarray:
+        """Push H into the smoothing history (``state.hbuf`` and
+        ``state.hcount`` change, as in the JAX class) and return the
+        smoothed homography."""
+        hbuf, hcount, H_s = geo.smooth_homography_step(self.state.hbuf, self.state.hcount,
+                                                       self._h(H), self._wtable)
+        self.state = self.state._replace(hbuf=hbuf, hcount=hcount)
+        return H_s.cpu().numpy()
+
+    def warp(self, frame_cur, H) -> np.ndarray:
+        """Warp one frame into the canvas by an absolute H (frame -> canvas)
+        and blend it in against the mosaic's union weight; updates the canvas
+        and its coarse union. Returns output_img."""
+        hc, wc = self.canvas_shape[0], self.canvas_shape[1]
+        frame_cm = self._frames(frame_cur).to(torch.float32).permute(2, 0, 1)
+        new_px, w_new = warp_ops.warp_frame_cm(frame_cm, self._fweight, self._h(H), hc, wc)
+        w_old = warp_ops.union_weight(self.state.canvas, self.state.union_coarse, hc, wc)
+        canvas, _ = warp_ops._blend_cm(self.state.canvas, w_old, new_px, w_new)
+        union = self.state.union_coarse | warp_ops.coarse_footprint(w_new)
+        self.state = self.state._replace(canvas=canvas, union_coarse=union)
+        return self.output_img
+
+    def _h(self, H) -> torch.Tensor:
+        if not torch.is_tensor(H):
+            H = torch.as_tensor(np.asarray(H, np.float32))
+        return H.to(device=self.device, dtype=torch.float32)
 
     @property
     def _detector(self):

@@ -67,8 +67,15 @@ def fast_score_map(gray: torch.Tensor, threshold: float = 20.0, arc: int = 9) ->
     bright = shifted > center + threshold
     dark = shifted < center - threshold
     corner = _has_arc(bright, arc) | _has_arc(dark, arc)
-    sb = torch.sum(torch.clamp(shifted - center - threshold, min=0.0), dim=1)
-    sd = torch.sum(torch.clamp(center - shifted - threshold, min=0.0), dim=1)
+    # the 16 terms added one at a time in circle order: the JAX version's
+    # float32 roundings, and the same on every device (torch.sum's order is
+    # the device's choice, and a score a rounding apart reorders the top-k)
+    over = torch.clamp(shifted - center - threshold, min=0.0)
+    under = torch.clamp(center - shifted - threshold, min=0.0)
+    sb, sd = over[:, 0], under[:, 0]
+    for i in range(1, over.shape[1]):
+        sb = sb + over[:, i]
+        sd = sd + under[:, i]
     score = torch.where(corner, torch.maximum(sb, sd), torch.zeros_like(sb))
     return score.reshape(*lead, h, w)
 

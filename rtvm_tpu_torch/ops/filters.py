@@ -58,9 +58,9 @@ def conv1d_edge(img: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
     """Correlate [..., H, W] along axis -1 or -2 with edge-replicate padding."""
     key = tuple(float(t) for t in taps)
     if axis == -1:
-        b = _band_tensor(key, img.shape[-1], img.device)
+        b = _band_tensor(key, img.shape[-1], img.device).to(img.dtype)
         return torch.matmul(img, b.T)
-    b = _band_tensor(key, img.shape[-2], img.device)
+    b = _band_tensor(key, img.shape[-2], img.device).to(img.dtype)
     return torch.matmul(b, img)
 
 

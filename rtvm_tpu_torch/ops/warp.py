@@ -12,17 +12,25 @@ here, batched over a leading frame axis where the JAX stitcher vmaps it.
 
 The warp itself is kernel A (``ops/pallas_warp.py``). ``_warp_gather_cm`` is
 the JAX package's exact out-of-regime warp, kept as a reference for tests.
+
+The standalone single-frame API of the JAX module is here too:
+``warp_frame_cm`` (kernel A, then the analytic weight with its holes),
+``union_weight``, ``_blend_cm``, ``warp_blend_fast``, ``warp_blend`` (HWC,
+the running-max weight, its own gather) and ``warp_perspective`` (kernel A,
+then the JAX function's strict in-frame mask).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from rtvm_tpu_torch.ops.filters import gaussian_blur
+from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch
 from rtvm_tpu_torch.ops.sampling import bilinear_sample
 
 CELL_PX = 4  # coarse union-occupancy cell size (px)
@@ -35,6 +43,17 @@ BLEND_SMOOTH_RADIUS = 15
 CHAMFER_A = 0.955
 CHAMFER_B = 1.3693
 UNION_CHUNK_BYTES = 256 << 20  # bound on the [Gh, Gh, Gw] column-combine transient
+
+
+class BlendedCanvas(NamedTuple):
+    canvas: torch.Tensor  # the blended canvas, in the caller's layout
+    weight: torch.Tensor  # [Hc, Wc] float32 feather weight at last write (0 = empty)
+
+
+def edge_distance_map(h: int, w: int, feather_radius: float = 32.0) -> np.ndarray:
+    """[H, W] float32 ramp: 0 at the frame border rising linearly to 1 at
+    `feather_radius` px inside."""
+    return np.minimum(edge_distance_px(h, w) / feather_radius, 1.0).astype(np.float32)
 
 
 def edge_distance_px(h: int, w: int) -> np.ndarray:
@@ -399,3 +418,103 @@ def _warp_gather_cm(stack: torch.Tensor, H: torch.Tensor, out_h: int, out_w: int
     inb = (sx >= 0.0) & (sx <= wf - 1.0) & (sy >= 0.0) & (sy <= hf - 1.0) & (den > 0.0)
     out = bilinear_sample(stack.permute(1, 2, 0), sx, sy).permute(2, 0, 1)
     return torch.where(inb[None], out, torch.zeros_like(out))
+
+
+# ---------------------------------------------------------------------------
+# The standalone single-frame API
+# ---------------------------------------------------------------------------
+
+
+def analytic_frame_weight(H: torch.Tensor, hf: int, wf: int, hc: int, wc: int) -> torch.Tensor:
+    """w_new [hc, wc] of one frame warped by H [3, 3]: the distance transform
+    of the warped frame mask, computed analytically (frame_weight_params and
+    frame_weight_eval for one frame)."""
+    return frame_weight_eval(frame_weight_params(H[None], hf, wf, hc, wc), hc, wc)[0]
+
+
+def warp_frame_cm(frame: torch.Tensor, frame_weight: torch.Tensor, H: torch.Tensor,
+                  hc: int, wc: int):
+    """Warp a channel-major frame [3, Hf, Wf] (float32) onto the canvas grid
+    with kernel A (its plain version for a CPU tensor). Returns (new_px
+    [3, Hc, Wc], w_new [Hc, Wc]); the weight comes from the analytic inverse
+    map (frame_weight is accepted for the JAX signature)."""
+    hf, wf = frame.shape[1], frame.shape[2]
+    H = H.to(device=frame.device, dtype=torch.float32)
+    warped = warp_batch(frame[None].contiguous(), inverse_maps(H[None]), hc, wc)[0]
+    return warped, frame_weight_with_holes(warped, analytic_frame_weight(H, hf, wf, hc, wc))
+
+
+def union_weight(canvas: torch.Tensor, union_coarse: torch.Tensor, hc: int, wc: int) -> torch.Tensor:
+    """w_old [hc, wc]: the coarse union's chamfer distance, upsampled, less
+    the half cell of the any-pooled footprint, on the canvas's coverage."""
+    up = upsample_weight(coarse_union_distance(union_coarse), hc, wc)
+    cover = torch.amax(canvas, dim=0) > 0.0
+    return torch.where(cover, torch.clamp(up - CELL_PX / 2.0, min=1.0), torch.zeros_like(up))
+
+
+def _blend_cm(canvas, canvas_weight, new_px, w_new) -> BlendedCanvas:
+    """Feathered composite of one warped frame into a channel-major canvas
+    [3, Hc, Wc]: blend_weights_smoothed, then blend_apply_cm."""
+    alpha_s, beta_s = blend_weights_smoothed(w_new, canvas_weight)
+    out = blend_apply_cm(canvas, new_px, w_new, canvas_weight, alpha_s, beta_s)
+    return BlendedCanvas(canvas=out, weight=torch.maximum(canvas_weight, w_new))
+
+
+def warp_blend_fast(canvas, canvas_weight, frame, frame_weight, H) -> BlendedCanvas:
+    """warp_frame_cm then _blend_cm (channel-major canvas [3, Hc, Wc] and
+    frame [3, Hf, Wf]), keeping the running-max weight."""
+    hc, wc = canvas.shape[1], canvas.shape[2]
+    new_px, w_new = warp_frame_cm(frame, frame_weight, H, hc, wc)
+    return _blend_cm(canvas, canvas_weight, new_px, w_new)
+
+
+def _source_coords(H: torch.Tensor, out_h: int, out_w: int, device):
+    """(sx, sy, den) [out_h, out_w]: each output pixel mapped back through
+    H^-1, the denominator clamped away from 0 as the JAX functions clamp it."""
+    hinv = torch.linalg.inv(H.to(device=device, dtype=torch.float32))
+    ys = torch.arange(out_h, dtype=torch.float32, device=device)[:, None]
+    xs = torch.arange(out_w, dtype=torch.float32, device=device)[None, :]
+    den = hinv[2, 0] * xs + hinv[2, 1] * ys + hinv[2, 2]
+    den = torch.where(den.abs() < 1e-9, torch.full_like(den, 1e-9), den)
+    sx = (hinv[0, 0] * xs + hinv[0, 1] * ys + hinv[0, 2]) / den
+    sy = (hinv[1, 0] * xs + hinv[1, 1] * ys + hinv[1, 2]) / den
+    return sx, sy, den
+
+
+def warp_blend(canvas, canvas_weight, frame, frame_weight, H) -> BlendedCanvas:
+    """Warp `frame` [Hf, Wf, 3] by H (frame -> canvas) and feather it into
+    `canvas` [Hc, Wc, 3] with the weight w_new / (w_new + canvas_weight),
+    keeping the running-max weight; the gather is the JAX function's own
+    (strict in-frame mask, clamped taps)."""
+    hc, wc = canvas.shape[0], canvas.shape[1]
+    hf, wf = frame.shape[0], frame.shape[1]
+    sx, sy, den = _source_coords(H, hc, wc, canvas.device)
+    inb = (sx >= 0.0) & (sx <= wf - 1.0) & (sy >= 0.0) & (sy <= hf - 1.0) & (den > 0.0)
+    new_px = bilinear_sample(frame, sx, sy)
+    w_new = torch.where(inb, bilinear_sample(frame_weight, sx, sy), torch.zeros_like(sx))
+    has_new = w_new > 0.0
+    has_old = canvas_weight > 0.0
+    alpha = (w_new / (w_new + canvas_weight + 1e-6))[..., None]
+    blended = alpha * new_px + (1.0 - alpha) * canvas
+    out = torch.where((has_new & has_old)[..., None], blended,
+                      torch.where(has_new[..., None], new_px, canvas))
+    return BlendedCanvas(canvas=out, weight=torch.maximum(canvas_weight, w_new))
+
+
+def warp_perspective(frame: torch.Tensor, H: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """cv2.warpPerspective (INTER_LINEAR) of a [Hf, Wf] or [Hf, Wf, C] frame
+    by H, as float32: kernel A (its plain version for a CPU tensor), then the
+    JAX function's mask, which keeps only sample points inside [0, Wf-1] x
+    [0, Hf-1]. cv2's zero border, which kernel A follows, also paints the
+    ring of sample points up to one pixel outside the frame, blended with
+    black; the JAX function and this one leave it at 0."""
+    gray = frame.dim() == 2
+    f = frame.to(torch.float32)
+    f = (f[None] if gray else f.permute(2, 0, 1))[None].contiguous()  # [1, C, Hf, Wf]
+    hf, wf = f.shape[2], f.shape[3]
+    H = H.to(device=f.device, dtype=torch.float32)
+    out = warp_batch(f, inverse_maps(H[None]), out_h, out_w)[0]
+    sx, sy, _ = _source_coords(H, out_h, out_w, f.device)
+    inb = (sx >= 0.0) & (sx <= wf - 1.0) & (sy >= 0.0) & (sy <= hf - 1.0)
+    out = torch.where(inb[None], out, torch.zeros_like(out))
+    return out[0] if gray else out.permute(1, 2, 0)

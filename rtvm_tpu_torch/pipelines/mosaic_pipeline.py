@@ -17,9 +17,8 @@ clock stops after ``torch.cuda.synchronize()``.
 
 Unlike the JAX driver, ``main`` does not catch an exception of the
 detection on the mosaic or of the navigation map: a run whose detection
-fails raises instead of writing a partial output. Not ported yet: the image
-directory route (``images_dir``, ROADMAP.md Queue 1 item 6), which raises
-NotImplementedError before any work.
+fails raises instead of writing a partial output. ``main(images_dir=...)``
+takes the image-directory route (``pipelines/images_pipeline.py``) instead.
 """
 
 from __future__ import annotations
@@ -340,14 +339,17 @@ def main(
     written mosaic (``stats["detections"]``, ``debug_watershed.jpg``); with
     ``enable_navigation``, ``navigation_map.jpg`` and
     ``debug_texture_mask.jpg``. The stages are timed as ``detect_init``,
-    ``detect_mosaic``, ``navigate`` and ``navigation_jpg``. The
-    image-directory route raises NotImplementedError.
+    ``detect_mosaic``, ``navigate`` and ``navigation_jpg``. With `images_dir`, it runs
+    ``images_pipeline.process_images_dir`` on that directory instead and
+    returns its result, as the JAX ``main`` does.
 
     `video_path` is any source ``io.video.VideoReader`` reads; there is no
     default clip. Returns (stitcher, stats)."""
     if images_dir is not None:
-        raise NotImplementedError("the image-directory route (images_dir, images_pipeline) is "
-                                  "not ported yet (ROADMAP.md, Queue 1 item 6)")
+        from rtvm_tpu_torch.pipelines.images_pipeline import process_images_dir
+
+        return process_images_dir(images_dir, output_dir or ".", config or PipelineConfig(),
+                                  device=device)
     if video_path is None:
         raise ValueError("no video given: pass a video path, a .npy file or a uint8 array "
                          "of frames")

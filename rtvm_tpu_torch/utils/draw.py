@@ -12,8 +12,8 @@ in place on a [H, W, 3] uint8 image and returning it, as cv2 does.
   and two circles, so a few edge pixels differ.
 - ``rectangle`` is cv2's: the closed polyline of its four corners, or filled
   for a negative thickness.
-- ``circle`` filled is cv2's midpoint circle, pixel for pixel; an outline
-  thicker than 1 is cv2's polygon of the circle (a vertex every 18 degrees
+- ``circle`` filled, and its outline at thickness 1, are cv2's midpoint
+  circle, pixel for pixel; an outline thicker than 1 is cv2's polygon of the circle (a vertex every 18 degrees
   up to radius 14), here with its vertices rounded to whole pixels and its
   sides drawn by ``line``.
 - ``polylines`` draws each side with ``line`` (cv2 caps every vertex too,
@@ -24,9 +24,9 @@ in place on a [H, W, 3] uint8 image and returning it, as cv2 does.
   descenders) scaled to the cap height of cv2's ``FONT_HERSHEY_SIMPLEX`` at
   the same scale, on the same baseline origin (``org`` is the bottom-left of
   the text). The glyphs are not Hershey's: cv2's stroke data is not
-  available to the port. The font has the Cyrillic letters of the
-  navigation map's legend; ``put_text_top`` places text by its top-left
-  corner as PIL does, with a one-pixel black shadow.
+  available to the port. The font has the Cyrillic alphabet, upper and
+  lower case; ``put_text_top`` places text by its top-left corner as PIL
+  does, with a one-pixel black shadow.
 """
 
 from __future__ import annotations
@@ -131,17 +131,58 @@ _FONT = {  # rows top to bottom, "#" inked; rows 7-8 (when given) hang below the
     "|": "..#../..#../..#../..#../..#../..#../..#..",
     "}": ".#.../..#../..#../...#./..#../..#../.#...",
     "~": "...../...../.#.../#.#.#/...#./...../.....",
-    # the Cyrillic letters of the navigation map's legend ("Маршрут",
-    # "Препятствия", "Старт"); those shaped like Latin letters share their glyphs
+    # the Cyrillic alphabet, upper and lower case (the legend's and the soil
+    # panel's lines); letters shaped like Latin ones share their glyphs below
+    "Б": "#####/#..../#..../####./#...#/#...#/####.",
+    "Г": "#####/#..../#..../#..../#..../#..../#....",
+    "Д": "..##./.#.#./.#.#./.#.#./.#.#./#####/#...#",
+    "Ё": ".#.#./...../#####/#..../####./#..../#####",
+    "Ж": "#.#.#/#.#.#/.###./..#../.###./#.#.#/#.#.#",
+    "З": ".###./#...#/....#/..##./....#/#...#/.###.",
+    "И": "#...#/#...#/#..##/#.#.#/##..#/#...#/#...#",
+    "Й": ".###./...../#..##/#.#.#/#.#.#/##..#/#...#",
+    "Л": "..###/.#..#/.#..#/.#..#/.#..#/.#..#/#...#",
     "П": "#####/#...#/#...#/#...#/#...#/#...#/#...#",
+    "У": "#...#/#...#/#...#/.####/....#/....#/.###.",
+    "Ф": "..#../.###./#.#.#/#.#.#/.###./..#../..#..",
+    "Ц": "#..#./#..#./#..#./#..#./#..#./#####/....#",
+    "Ч": "#...#/#...#/#...#/.####/....#/....#/....#",
+    "Ш": "#.#.#/#.#.#/#.#.#/#.#.#/#.#.#/#.#.#/#####",
+    "Щ": "#.#.#/#.#.#/#.#.#/#.#.#/#.#.#/#####/....#",
+    "Ъ": "##.../.#.../.#.../.###./.#..#/.#..#/.###.",
+    "Ы": "#...#/#...#/#...#/###.#/#.#.#/#.#.#/###.#",
+    "Ь": "#..../#..../#..../####./#...#/#...#/####.",
+    "Э": ".###./#...#/....#/..###/....#/#...#/.###.",
+    "Ю": "#..#./#.#.#/#.#.#/###.#/#.#.#/#.#.#/#..#.",
+    "Я": ".####/#...#/#...#/.####/..#.#/.#..#/#...#",
+    "б": "..##./.#.../#..../####./#...#/#...#/.###.",
+    "в": "...../...../####./#...#/####./#...#/####.",
+    "г": "...../...../#####/#..../#..../#..../#....",
+    "д": "...../...../.###./.#.#./.#.#./#####/#...#",
+    "ё": ".#.#./...../.###./#...#/#####/#..../.###.",
+    "ж": "...../...../#.#.#/.###./..#../.###./#.#.#",
+    "з": "...../...../.###./....#/..##./....#/.###.",
+    "и": "...../...../#...#/#..##/#.#.#/##..#/#...#",
+    "й": "...../..#../#...#/#..##/#.#.#/##..#/#...#",
+    "к": "...../...../#..#./#.#../##.../#.#../#..#.",
+    "л": "...../...../..###/.#..#/.#..#/.#..#/#...#",
+    "м": "...../...../#...#/##.##/#.#.#/#...#/#...#",
+    "н": "...../...../#...#/#...#/#####/#...#/#...#",
     "п": "...../...../#####/#...#/#...#/#...#/#...#",
     "т": "...../...../#####/..#../..#../..#../..#..",
+    "ф": "...../..#../.###./#.#.#/#.#.#/.###./..#..",
+    "ц": "...../...../#..#./#..#./#..#./#####/....#",
+    "ч": "...../...../#...#/#...#/.####/....#/....#",
     "ш": "...../...../#.#.#/#.#.#/#.#.#/#.#.#/#####",
+    "щ": "...../...../#.#.#/#.#.#/#.#.#/#####/....#",
+    "ъ": "...../...../##.../.###./.#..#/.#..#/.###.",
+    "ы": "...../...../#...#/#...#/###.#/#.#.#/###.#",
+    "ь": "...../...../#..../####./#...#/#...#/####.",
+    "э": "...../...../.###./....#/..###/....#/.###.",
+    "ю": "...../...../#..#./#.#.#/###.#/#.#.#/#..#.",
     "я": "...../...../.####/#...#/.####/..#.#/.#..#",
-    "в": "...../...../####./#...#/####./#...#/####.",
-    "и": "...../...../#...#/#..##/#.#.#/##..#/#...#",
 }
-_FONT.update({cyr: _FONT[lat] for cyr, lat in zip("аеорсуМСР", "aeopcyMCP")})
+_FONT.update({cyr: _FONT[lat] for cyr, lat in zip("АВЕКМНОРСТХаеорсух", "ABEKMHOPCTXaeopcyx")})
 _BODY_ROWS = 7
 _HERSHEY_CAP = 21.0  # FONT_HERSHEY_SIMPLEX's cap height in font units at scale 1
 _COL_ASPECT = 0.7  # glyph column width over row height
@@ -249,6 +290,26 @@ def _circle_offsets(radius: int):
     return np.concatenate(ys), np.concatenate(xs)
 
 
+@functools.lru_cache(maxsize=64)
+def _circle_outline(radius: int):
+    """(dy, dx) of cv2's Circle outline of `radius` (thickness 1): the ends
+    of the filled circle's spans, the same midpoint walk."""
+    err, dx, dy, plus, minus = 0, radius, 0, 1, 2 * radius - 1
+    pts = []
+    while dx >= dy:
+        pts += [(-dy, -dx), (-dy, dx), (dy, -dx), (dy, dx),
+                (-dx, -dy), (-dx, dy), (dx, -dy), (dx, dy)]
+        dy += 1
+        err += plus
+        plus += 2
+        if err > 0:
+            err -= minus
+            dx -= 1
+            minus -= 2
+    a = np.array(pts, np.int64)
+    return a[:, 0], a[:, 1]
+
+
 def _fill_box(img: np.ndarray, x0: int, y0: int, x1: int, y1: int, color) -> None:
     h, w = img.shape[:2]
     x0, y0, x1, y1 = max(x0, 0), max(y0, 0), min(x1, w - 1), min(y1, h - 1)
@@ -310,8 +371,8 @@ def circle(img: np.ndarray, center, radius: int, color, thickness: int = 1) -> n
     """cv2.circle(img, center, radius, color, thickness), in place: filled
     for a negative thickness, else the outline (see the module's note)."""
     cx, cy = int(center[0]), int(center[1])
-    if thickness < 0:
-        dy, dx = _circle_offsets(int(radius))
+    if thickness < 0 or thickness == 1:
+        dy, dx = (_circle_offsets if thickness < 0 else _circle_outline)(int(radius))
         _paint(img, dy + cy, dx + cx, color)
         return img
     delta = 90 if radius < 3 else 30 if radius < 10 else 18 if radius < 15 else 5

@@ -55,7 +55,8 @@ def scenes():
 
 
 @pytest.mark.parametrize("h,w,imgsz", [(360, 640, 640), (360, 640, 320), (360, 640, (384, 640)),
-                                       (1080, 1920, 1280), (480, 640, (480, 640)), (37, 91, 64)])
+                                       (1080, 1920, 1280), (480, 640, (480, 640)), (37, 91, 64),
+                                       (1080, 1920, (768, 1280))])  # BASELINE config 5
 def test_letterbox_params_match_jax(h, w, imgsz):
     assert TP.letterbox_params(h, w, imgsz) == JP.letterbox_params(h, w, imgsz)
 
@@ -76,6 +77,20 @@ def test_unletterbox_boxes_matches_jax():
     want = JP.unletterbox_boxes(jnp.asarray(boxes), 0.5, 140, 7)
     got = TP.unletterbox_boxes(torch.from_numpy(boxes), 0.5, 140, 7)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-7, atol=0)
+
+
+def test_config5_letterbox_matches_jax():
+    """BASELINE config 5: 1080x1920 frames at the non-square (768, 1280)
+    letterbox (pad rows, no pad columns), into the network and back."""
+    frames = np.random.RandomState(6).randint(0, 256, (2, 1080, 1920, 3), dtype=np.uint8)
+    want, *geo_want = JP.preprocess_frames(jnp.asarray(frames), (768, 1280))
+    got, scale, py, px = TP.preprocess_frames(torch.from_numpy(frames), (768, 1280))
+    assert (scale, py, px) == (float(geo_want[0]), int(geo_want[1]), int(geo_want[2])) == (2 / 3, 24, 0)
+    assert float((got - _nchw(want)).abs().max()) <= PRE_TOL
+    boxes = np.random.RandomState(3).uniform(0, 1280, (2, 300, 4)).astype(np.float32)
+    np.testing.assert_allclose(TP.unletterbox_boxes(torch.from_numpy(boxes), scale, py, px).numpy(),
+                               np.asarray(JP.unletterbox_boxes(jnp.asarray(boxes), scale, py, px)),
+                               rtol=1e-7, atol=0)
 
 
 def test_decode_predictions_matches_jax():

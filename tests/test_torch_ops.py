@@ -316,7 +316,7 @@ def test_ransac_fails_cleanly_with_too_few_matches():
 
 _IMPORT_PROBE = """
 import sys
-for name in ("jax", "jaxlib", "cv2", "PIL", "rtvm_tpu"):
+for name in ("jax", "jaxlib", "cv2", "PIL", "rtvm_tpu", "matplotlib"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import importlib, py_compile
 mods = ["rtvm_tpu_torch", "rtvm_tpu_torch.config", "rtvm_tpu_torch.device",
@@ -337,11 +337,14 @@ mods = ["rtvm_tpu_torch", "rtvm_tpu_torch.config", "rtvm_tpu_torch.device",
         "rtvm_tpu_torch.models.yolo.world", "rtvm_tpu_torch.utils.contours",
         "rtvm_tpu_torch.detect.classical", "rtvm_tpu_torch.navigate.native",
         "rtvm_tpu_torch.navigate.obstacles", "rtvm_tpu_torch.navigate.astar",
-        "rtvm_tpu_torch.navigate.mapping"]
+        "rtvm_tpu_torch.navigate.mapping", "rtvm_tpu_torch.io.imread",
+        "rtvm_tpu_torch.pipelines.images_pipeline", "rtvm_tpu_torch.slam.flow",
+        "rtvm_tpu_torch.slam.epipolar", "rtvm_tpu_torch.slam.vo", "rtvm_tpu_torch.slam.runner",
+        "rtvm_tpu_torch.slam.terrain"]
 for m in mods:
     importlib.import_module(m)
 py_compile.compile("chip_smoke.py", doraise=True)
-bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "cv2", "PIL", "rtvm_tpu") and sys.modules[n] is not None)
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "cv2", "PIL", "rtvm_tpu", "matplotlib") and sys.modules[n] is not None)
 assert not bad, bad
 print("OK", len(mods))
 """
@@ -362,7 +365,7 @@ def test_port_imports_without_jax_cv2_or_reference_package():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_PROBE], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "OK 41"
+    assert proc.stdout.strip() == "OK 48"
 
 
 def test_default_device_is_cuda_and_never_falls_back():

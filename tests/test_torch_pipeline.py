@@ -445,15 +445,92 @@ def test_show_intermediate_writes_the_progress_image_with_the_border(small, tmp_
     assert prog[y - 2 : y + 3, x].max() < 40 and m.output_img_u8[y - 2 : y + 3, x].max() > 40
 
 
-def test_not_ported_parts_raise_before_any_work(tmp_path):
-    """Of main's routes only the image directory is left unported."""
+def test_not_ported_parts_raise_before_any_work(tmp_path, small):
+    """Every route of main is ported now: images_dir goes to the image
+    route (no stitching: an empty directory gives an empty result and no
+    mosaic), and run_mosaic's visualize writes matches.jpg."""
     frames = np.zeros((3, 32, 32, 3), np.uint8)
     out = tmp_path / "never"
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TPL.main(frames, output_dir=str(out), device="cpu", images_dir=str(tmp_path))
-    assert not out.exists()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        TPL.run_mosaic(frames, visualize=True, viz_dir=str(tmp_path), device="cpu")
+    (tmp_path / "empty").mkdir()
+    assert TPL.main(frames, output_dir=str(out), device="cpu",
+                    images_dir=str(tmp_path / "empty")) == []
+    assert os.listdir(out) == ["Detections"] and not os.listdir(out / "Detections")
+    viz = tmp_path / "viz"
+    TPL.run_mosaic(small[0][:5], config=MosaicConfig(window_size=4), detector_type="orb",
+                   visualize=True, viz_dir=str(viz), device="cpu")
+    assert os.listdir(viz) == ["matches.jpg"]
+    h, w = small[0].shape[1:3]
+    assert J.jpeg_size((viz / "matches.jpg").read_bytes()) == (h, 2 * w)
+
+
+@pytest.fixture(scope="module")
+def images_dirs(tmp_path_factory):
+    """Three images of test_torch_world.py's aerial kind (two JPEGs and a
+    PNG, written by cv2) through JAX's process_images_dir and the port's
+    main(images_dir=...), each package's navigation maps kept in memory.
+    The JAX world detector is built with the repository as the working
+    directory (it looks only at the relative weights/ path)."""
+    import rtvm_tpu.navigate.mapping as jmap
+    import rtvm_tpu_torch.navigate.mapping as tmap
+    from rtvm_tpu.pipelines.images_pipeline import process_images_dir
+    from test_torch_world import mosaic_like
+
+    d = tmp_path_factory.mktemp("images")
+    src = d / "in"
+    src.mkdir()
+    imgs = {"a": mosaic_like(1)[:300, :420], "b": mosaic_like(2)[280:560, 540:900],
+            "c": mosaic_like(3)[:256, 400:800]}
+    cv2.imwrite(str(src / "a.jpg"), imgs["a"], [cv2.IMWRITE_JPEG_QUALITY, 95])
+    cv2.imwrite(str(src / "b.png"), imgs["b"])
+    cv2.imwrite(str(src / "c.jpeg"), imgs["c"], [cv2.IMWRITE_JPEG_QUALITY, 90])
+    (src / "notes.txt").write_text("not an image")
+    maps = {"jax": [], "port": []}
+
+    def keep(key, fn):
+        def run(img, dets, *a, **k):
+            out = fn(img, dets, *a, **k)
+            maps[key].append((np.array(out), [dict(x) for x in dets]))
+            return out
+        return run
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jmap, "analyze_for_navigation", keep("jax", jmap.analyze_for_navigation))
+    mp.setattr(tmap, "analyze_for_navigation", keep("port", tmap.analyze_for_navigation))
+    mp.chdir(REPO)
+    try:
+        jres = process_images_dir(str(src), str(d / "jax"), JPipelineConfig())
+        tres = TPL.main(images_dir=str(src), output_dir=str(d / "port"), device="cpu")
+    finally:
+        mp.undo()
+    return imgs, jres, tres, maps, d
+
+
+def test_images_dir_matches_jax_process_images_dir(images_dirs):
+    from test_torch_navigate import MIN_MAP_EQUAL, _text_boxes
+    from test_torch_world import MIN_E2E_SHARE, _both_ways
+
+    imgs, jres, tres, maps, d = images_dirs
+    assert [r["image"] for r in tres] == [r["image"] for r in jres]
+    assert [os.path.basename(r["image"]) for r in tres] == ["a.jpg", "b.png", "c.jpeg"]
+    names = sorted(os.listdir(d / "jax" / "Detections"))
+    assert sorted(os.listdir(d / "port" / "Detections")) == names and len(names) == 6
+    for n in names:
+        want = cv2.imread(str(d / "jax" / "Detections" / n)).shape[:2]
+        assert J.jpeg_size((d / "port" / "Detections" / n).read_bytes()) == want, n
+    assert _both_ways([r["detections"] for r in jres], [r["detections"] for r in tres]) >= MIN_E2E_SHARE
+    assert sum(len(r["detections"]) for r in tres) >= 10
+    for (jm, jd), (tm, td) in zip(maps["jax"], maps["port"]):
+        assert tm.shape == jm.shape
+        keep = _text_boxes(jd, jm.shape[:2]) & _text_boxes(td, jm.shape[:2])
+        assert (tm == jm).all(-1)[keep].mean() >= MIN_MAP_EQUAL
+
+
+def test_the_cli_images_dir_route(tmp_path, monkeypatch):
+    got = []
+    monkeypatch.setattr(TPL, "main", lambda **kw: got.append(kw) or ["done"])
+    assert cli.main(["mosaic", "--images-dir", "imgs", "--output-dir", "out"]) == ["done"]
+    assert got[0]["images_dir"] == "imgs" and got[0]["video_path"] is None
+    assert got[0]["output_dir"] == "out"
 
 
 OUTPUTS = ["debug_texture_mask.jpg", "debug_watershed.jpg", "mosaic.jpg", "mosaic_progress.jpg",

@@ -430,18 +430,19 @@ def test_jax_style_positional_arguments_land_in_place(scene):
 def test_debug_artifacts_are_refused_not_ignored(scene, tmp_path, show_intermediate, visualize):
     frames = _orb_frames(scene, 3)
     f0 = frames[0]
-    if visualize:  # matches.jpg (render_matches) is not ported
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            VideMosaic(frames[0], detector_type="orb", config=_orb_config(),
-                       show_intermediate=show_intermediate, visualize=visualize,
-                       output_dir=str(tmp_path), device="cpu")
+    m = VideMosaic(frames[0], detector_type="orb", config=_orb_config(),
+                   show_intermediate=show_intermediate, visualize=visualize,
+                   output_dir=str(tmp_path), device="cpu")
+    m.process_window(np.stack(frames[1:]))
+    if visualize:  # matches.jpg: the window's last frame pair, side by side
+        img = cv2.imread(str(tmp_path / "matches.jpg"))
+        h, w = f0.shape[:2]
+        assert img is not None and img.shape == (h, 2 * w, 3)
+        assert not (tmp_path / "mosaic_progress.jpg").exists()
     else:  # mosaic_progress.jpg is written, after the first window
-        m = VideMosaic(frames[0], detector_type="orb", config=_orb_config(),
-                       show_intermediate=show_intermediate, visualize=visualize,
-                       output_dir=str(tmp_path), device="cpu")
-        m.process_window(np.stack(frames[1:]))
         img = cv2.imread(str(tmp_path / "mosaic_progress.jpg"))
         assert img is not None and img.shape == m.output_img_u8.shape
+        assert not (tmp_path / "matches.jpg").exists()
     # no output_dir, or nothing asked of it: no artifacts to write, no error
     VideMosaic(f0, detector_type="orb", config=_orb_config(), show_intermediate=show_intermediate,
                visualize=visualize, device="cpu")

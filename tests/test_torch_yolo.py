@@ -25,7 +25,8 @@ torch.set_num_threads(1)  # tier 1 runs several test workers at once
 
 MODULE_TOL = 1e-5
 MODEL_TOL = 1e-3
-CHECKPOINTS = {"yolov8n": "weights/yolov8n_aerial.npz", "yolo11n": "weights/yolo11n_aerial.npz"}
+CHECKPOINTS = {"yolov8n": "weights/yolov8n_aerial.npz", "yolo11n": "weights/yolo11n_aerial.npz",
+               "yolov8l": "weights/yolov8l_aerial.npz"}  # YOLOv8l: BASELINE config 5
 NUM_CLASSES = 8  # the bundled checkpoints' aerial classes
 
 
@@ -59,8 +60,9 @@ def test_npz_reader_matches_the_jax_loader(variant):
     assert list(ours) == list(theirs)  # same paths in the same (flatten) order
     for p in theirs:
         assert ours[p].dtype == theirs[p].dtype and np.array_equal(ours[p], theirs[p]), p
-    assert len(ours) == {"yolov8n": 297, "yolo11n": 417}[variant]
-    assert sum(v.size for v in ours.values()) == {"yolov8n": 3022792, "yolo11n": 2606760}[variant]
+    assert len(ours) == {"yolov8n": 297, "yolo11n": 417, "yolov8l": 497}[variant]
+    assert sum(v.size for v in ours.values()) == {"yolov8n": 3022792, "yolo11n": 2606760,
+                                                  "yolov8l": 43682456}[variant]
 
 
 def _randomise(tree, rng):
@@ -160,11 +162,12 @@ def test_converter_refuses_a_checkpoint_of_another_variant():
         flax_to_state_dict(tree, "yolov8s")
 
 
-@pytest.mark.parametrize("imgsz", [64, 128])
-@pytest.mark.parametrize("variant", sorted(CHECKPOINTS))
+@pytest.mark.parametrize("variant,imgsz", [(v, s) for v in ("yolov8n", "yolo11n") for s in (64, 128)]
+                         + [("yolov8l", (160, 256))])
 def test_whole_model_with_the_bundled_checkpoint(variant, imgsz):
     jm, tree = _jax_tree(variant, CHECKPOINTS[variant])
-    x = np.random.RandomState(imgsz).rand(2, imgsz, imgsz, 3).astype(np.float32)
+    h, w = (imgsz, imgsz) if isinstance(imgsz, int) else imgsz  # YOLOv8l: a non-square letterbox
+    x = np.random.RandomState(h).rand(2, h, w, 3).astype(np.float32)
     jb, jc = jm.apply(tree, jnp.asarray(x), train=False)  # un-jitted: no compile
 
     tm = TM.build_yolo(variant, NUM_CLASSES, device="cpu")
