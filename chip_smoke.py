@@ -64,7 +64,20 @@ Phases, each printed with its result and seconds on its own line:
  14. the CLI's slam on a 360x640 clip with parallax (phase `slam`) against
      the known direction and the port's CPU run, and the CLI's terrain on a
      soil image (phase `terrain`) against the CPU run;
- 15. kernel A against its plain version on the maps of a window of the SIFT
+ 15. slice 8: one SIFT window at 480x854 (phase `sift_854`: octave widths
+     that are not multiples of 4 floats through kernel B's pitched route,
+     launches warp 1 and patches 2, B byte-identical to its plain version);
+     the CLI's depth3d on a 1080x1920 PNG (phase `depth3d_image`: DepthNet
+     on the card from weights/depthnet.npz against the port's CPU run, the
+     cloud, mesh and panels, DepthNet's warm time, peak memory, the stage
+     walls), on a 360x640 .npy clip (phase `depth3d_video`: ICP on the card
+     against the CPU on the same clouds, the CPU pipeline's frames and
+     points), on a directory of 4 views with --multi-view (phase
+     `depth3d_multiview`: ORB angles, the indicator mesh; fuse_tsdf on
+     analytic sphere depths against the CPU), and terrain --reconstruct-3d
+     --fast (phase `terrain_3d`: the depth PNG against the CPU run, the
+     bilateral and median filters on the card);
+ 16. kernel A against its plain version on the maps of a window of the SIFT
      run, and timed through warp_batch on them;
 then one JSON line of per-kernel numbers, the elapsed time, and as the last
 line {"ok": true, "device": {...}}. Any failed check exits non-zero. Without
@@ -134,6 +147,19 @@ def check(cond: bool, msg: str) -> None:
 
 def phase(name: str, t0: float, result: str) -> None:
     say(f"[{name}] {result} ({time.time() - t0:.2f} s)")
+
+
+def counted(run):
+    """(run(), the kernels' launch counts in it): every count is set to 0
+    just before `run` and read just after."""
+    from rtvm_tpu_torch import kernels
+
+    kernels.reset_launches()
+    out = run()
+    return out, dict(kernels.launches)
+
+
+NO_LAUNCHES = {"warp": 0, "patches": 0}  # paths that neither warp nor cut SIFT patches
 
 
 # ----------------------------------------------------------------- inputs
@@ -1381,9 +1407,10 @@ def phase_images(torch, dev, tmp: str, card: str) -> dict:
 
     out = os.path.join(tmp, "images_out")
     t = time.time()
-    res = cli.main(["mosaic", "--images-dir", src, "--output-dir", out])
+    res, counts = counted(lambda: cli.main(["mosaic", "--images-dir", src, "--output-dir", out]))
     torch.cuda.synchronize()
     wall = time.time() - t
+    check(counts == NO_LAUNCHES, f"images: launch counts {counts}")
     files = sorted(os.listdir(os.path.join(out, "Detections")))
     want_files = sorted(f"{os.path.splitext(n)[0]}_{k}.jpg" for n in imgs for k in ("detected", "navigation"))
     check(files == want_files, f"images: Detections/ holds {files}")
@@ -1418,8 +1445,8 @@ def phase_images(torch, dev, tmp: str, card: str) -> dict:
           f"equal), decoded on the host in " + ", ".join(f"{k} {v:.1f} ms" for k, v in decode_ms.items())
           + f"; the CLI's --images-dir in {wall:.3f} s: {len(files)} files of "
           f"{FRAME_H}x{FRAME_W}, {n_det} detections; card against CPU float32 (share, card, CPU): "
-          + ", ".join(f"{k} {v}" for k, v in agree.items()) + f"; on {card}")
-    return {"warp": 0, "patches": 0}
+          + ", ".join(f"{k} {v}" for k, v in agree.items()) + f"; launches {counts}; on {card}")
+    return counts
 
 
 STREAM_H, STREAM_W = 1080, 1920  # BASELINE config 5
@@ -1634,7 +1661,8 @@ def phase_slam(torch, dev, tmp: str, card: str) -> dict:
     try:
         torch.cuda.synchronize()
         t = time.time()
-        slam, traj = cli.main(["slam", clip, "--output-dir", out, "--max-frames", str(SLAM_FRAMES)])
+        (slam, traj), counts = counted(lambda: cli.main(
+            ["slam", clip, "--output-dir", out, "--max-frames", str(SLAM_FRAMES)]))
         torch.cuda.synchronize()
         wall = time.time() - t
         into[0] = seen_cpu
@@ -1645,6 +1673,7 @@ def phase_slam(torch, dev, tmp: str, card: str) -> dict:
     finally:
         vo_mod.VisualOdometry.process_frame = real
     check(slam.vo.device.type == "cuda", f"slam: ran on {slam.vo.device}")
+    check(counts == NO_LAUNCHES, f"slam: launch counts {counts}")
     npy = np.load(os.path.join(out, "slam_trajectory_final.npy"))
     with open(os.path.join(out, "slam_trajectory_final.txt")) as f:
         lines = f.read().splitlines()
@@ -1678,8 +1707,9 @@ def phase_slam(torch, dev, tmp: str, card: str) -> dict:
           f"degrees off the camera's +x (the CPU run's {angle_cpu:.2f}); against the CPU run: "
           f"FAST keypoints equal, tracked counts equal, tracked points within {lk_err:.3e} px, "
           f"positions within "
-          f"{pos_err:.3e} ({cpu_s / SLAM_FRAMES * 1e3:.0f} ms a frame there); on {card}")
-    return {"warp": 0, "patches": 0}
+          f"{pos_err:.3e} ({cpu_s / SLAM_FRAMES * 1e3:.0f} ms a frame there); launches {counts}; "
+          f"on {card}")
+    return counts
 
 
 def phase_terrain(torch, dev, tmp: str, card: str) -> dict:
@@ -1701,8 +1731,9 @@ def phase_terrain(torch, dev, tmp: str, card: str) -> dict:
         f.write(encode_jpg(img))
     out = os.path.join(tmp, "terrain.jpg")
     t = time.time()
-    res = cli.main(["terrain", src, "--output", out])
+    res, counts = counted(lambda: cli.main(["terrain", src, "--output", out]))
     wall = time.time() - t
+    check(counts == NO_LAUNCHES, f"terrain: launch counts {counts}")
     want = TerrainSoilAnalyzer(device="cpu").analyze_image(imread(src))
     bad = []
 
@@ -1731,8 +1762,466 @@ def phase_terrain(torch, dev, tmp: str, card: str) -> dict:
           f"{res['soil_type']} ({res['confidence']:.4f}), moisture {res['moisture_class']}, "
           f"vegetation {res['vegetation_class']} ({res['vegetation_cover']:.4f}), erosion "
           f"{res['erosion_class']}; every class equal to the CPU run's and every number within "
-          f"1e-4; picture {dims}; the CLI {wall * 1e3:.1f} ms; on {card}")
-    return {"warp": 0, "patches": 0}
+          f"1e-4; picture {dims}; the CLI {wall * 1e3:.1f} ms; launches {counts}; on {card}")
+    return counts
+
+
+# ------------------------------------------------- slice 8: item 34, depth3d
+
+SIFT_854 = (480, 854)  # 480p: every octave width (854, 427, 214, 107) off a multiple of 4
+
+
+def phase_sift_854(torch, dev, card: str) -> dict:
+    """One SIFT window of 16 frames at 480x854 plus frame 0 through
+    VideMosaic.process_window: kernel B on octaves whose widths are not
+    multiples of 4 (pitched levels), launches warp 1 and patches 2, at least
+    15 of 16 frames accepted on the known path; B byte-identical to its plain
+    version on that window's stacks."""
+    from rtvm_tpu_torch import kernels
+    from rtvm_tpu_torch.config import FeatureConfig
+    from rtvm_tpu_torch.mosaic.stitcher import VideMosaic
+    from rtvm_tpu_torch.ops import color
+    from rtvm_tpu_torch.ops.features.sift import detect_pyramid
+    from rtvm_tpu_torch.ops.pallas_patches import (extract_patches_octaves,
+                                                   extract_patches_octaves_plain)
+
+    t0 = time.time()
+    h, w = SIFT_854
+    frames, path = make_clip(np.random.RandomState(SEED + 9), 1 + WINDOW, h, w)
+    win = torch.as_tensor(frames[1:]).to(dev)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t = time.time()
+    m = VideMosaic(frames[0], detector_type="sift", seed=SEED, device=dev)
+    aux = m.process_window(win)
+    torch.cuda.synchronize()
+    wall = time.time() - t
+    counts = dict(kernels.launches)
+    check(counts == {"warp": 1, "patches": 2}, f"sift_854: launch counts {counts}")
+    blended, ok = aux.blended.cpu().numpy(), aux.ok.cpu().numpy()
+    accepted = int((blended & ok).sum())
+    check(accepted >= WINDOW - 1, f"sift_854: only {accepted} of {WINDOW} frames accepted")
+    H_abs = aux.H_abs.cpu().numpy().astype(np.float64)
+    corners = np.array([[0, 0, 1], [w, 0, 1], [w, h, 1], [0, h, 1]], np.float64).T
+    got = np.einsum("bij,jk->bik", H_abs, corners)
+    got = (got[:, :2] / got[:, 2:3]).transpose(0, 2, 1)
+    shift = path[1:] - path[0] + np.array([m.h_offset, m.w_offset])
+    traj_err = float(np.abs(got - (corners[:2].T[None] + shift[:, None, :]))[blended].max())
+    check(traj_err <= TRAJ_TOL_PX, f"sift_854: corners off by {traj_err:.3f} px")
+
+    _, _, stacks, ys, xs, _ = detect_pyramid(color.bgr2gray(win), FeatureConfig())
+    widths = [int(st.shape[2]) for st in stacks]
+    pitches = [int(st.stride(1)) for st in stacks]
+    # the level buffers (all 6 levels of each octave) with and without the pitch
+    level_bytes = sum(st.shape[0] * st.stride(0) * 4 for st in stacks)
+    pad_bytes = sum(st.shape[0] * st.stride(0) // p * (p - wo) * 4
+                    for st, p, wo in zip(stacks, pitches, widths))
+    check(any(wo % 4 for wo in widths), f"sift_854: octave widths {widths} are all 4-aligned")
+    out_k = extract_patches_octaves(stacks, ys, xs)
+    out_p = extract_patches_octaves_plain(stacks, ys, xs)
+    torch.cuda.synchronize()
+    check(torch.equal(out_k, out_p), "sift_854: kernel B differs from its plain version")
+    ms = cuda_ms(torch, lambda: extract_patches_octaves(stacks, ys, xs))
+    plain_ms = cuda_ms(torch, lambda: extract_patches_octaves_plain(stacks, ys, xs))
+    phase("sift_854", t0,
+          f"{accepted}/{WINDOW} frames of {h}x{w} accepted, corners within {traj_err:.4f} px, "
+          f"launches {counts}; octave widths {widths} on row pitches {pitches} "
+          f"({pad_bytes / 1e6:.3f} MB of padding in {level_bytes / 1e6:.1f} MB of levels); kernel B "
+          f"byte-identical to plain ({out_k.shape[1]} patches a frame), {ms:.4f} ms a window "
+          f"(plain {plain_ms:.4f}); the window (frame 0 and 16 frames) {wall * 1e3:.1f} ms, "
+          f"{WINDOW / wall:.2f} frames/s with the first call's costs; on {card}")
+    return counts
+
+
+class _Walls:
+    """Wraps callables (owner, attribute, label) to add each call's wall,
+    up to a synchronize after it, to walls[label] (ms), and keeps the last
+    argument tuple and result of each label."""
+
+    def __init__(self, torch, targets):
+        self.torch, self.targets = torch, targets
+        self.walls, self.last = {}, {}
+
+    def __enter__(self):
+        self.saved = []
+        sync = self.torch.cuda.synchronize
+        for owner, attr, label in self.targets:
+            real = getattr(owner, attr)
+            self.saved.append((owner, attr, real))
+            self.walls.setdefault(label, 0.0)
+
+            def wrapped(*a, _real=real, _label=label, **k):
+                t = time.perf_counter()
+                out = _real(*a, **k)
+                sync()
+                self.walls[_label] += (time.perf_counter() - t) * 1e3
+                self.last[_label] = (a, out)
+                return out
+            setattr(owner, attr, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, attr, real in reversed(self.saved):
+            setattr(owner, attr, real)
+
+    def fmt(self) -> str:
+        return ", ".join(f"{k} {v:.1f}" for k, v in self.walls.items()) + " ms"
+
+
+DEPTH_IMAGE = (1080, 1920)  # BASELINE config 5's frames: DepthNet at the frame's own size
+DEPTH_CPU_TOL = 1e-3  # normalised depth, card against the port's float32 CPU run
+ICP_CPU_TOL = 1e-3  # ICP's R and t, card against the CPU on the same clouds
+# R and t, the card's video pipeline against the CPU's, each on its own
+# depths. tools/icp_depth_sensitivity.py on a CPU: +-4e-6 of depth noise
+# moves them by up to 1.774e-2; a one-pixel shift of the depths, the
+# previous frame's depths or depths times 0.99 by 0.108, 0.217 and 0.114.
+ICP_PIPE_TOL = 4e-2
+DEPTH_VIDEO_STEP = (2, -4)  # px a frame
+TSDF_CPU_TOL = 1e-4
+TERRAIN_IMAGE = (540, 960)
+TERRAIN_OFF_BY_ONE = 1e-3  # share of depth PNG pixels one level off the CPU run's
+
+
+def _depth_stages() -> list:
+    """The stages of depth3d/pipeline.py (and the estimator's estimate_depth)
+    as _Walls targets."""
+    from rtvm_tpu_torch.depth3d import pipeline as pl
+
+    return [(pl.MonocularDepthEstimator, "estimate_depth", "depth"),
+            (pl, "unproject_depth", "unproject"), (pl, "remove_statistical_outliers", "outliers"),
+            (pl, "depth_grid_mesh", "mesh"), (pl, "surface_mesh_from_points", "mesh"),
+            (pl, "write_ply_points", "writes"), (pl, "write_obj_mesh", "writes"),
+            (pl, "write_ply_mesh", "writes"), (pl, "save_depth_panels", "writes")]
+
+
+def phase_depth3d_image(torch, dev, tmp: str, card: str) -> dict:
+    """The CLI's depth3d on a 1080x1920 PNG of a seeded world: DepthNet on the
+    card from weights/depthnet.npz (not the heuristic), its normalised depth
+    within DEPTH_CPU_TOL of the port's float32 CPU run, the cloud, mesh and
+    panels read back; DepthNet's warm time (CUDA events) and peak memory, and
+    the wall of each stage."""
+    from rtvm_tpu_torch import cli
+    from rtvm_tpu_torch.depth3d.estimator import MonocularDepthEstimator
+    from rtvm_tpu_torch.io.imread import imread
+    from rtvm_tpu_torch.io.ply import read_obj_mesh, read_ply_points
+    from rtvm_tpu_torch.io.png import imwrite_png
+
+    t0 = time.time()
+    h, w = DEPTH_IMAGE
+    img = make_world(np.random.RandomState(SEED + 10), h, w)
+    src = os.path.join(tmp, "scene.png")
+    imwrite_png(src, img)
+    out = os.path.join(tmp, "depth3d_image")
+    with _Walls(torch, _depth_stages()) as walls:
+        torch.cuda.synchronize()
+        t = time.time()
+        res, counts = counted(lambda: cli.main(["depth3d", src, "--output-dir", out]))
+        wall = time.time() - t
+    check(counts == NO_LAUNCHES, f"depth3d_image: launch counts {counts}")
+    est = walls.last["depth"][0][0]  # the estimator the CLI built
+    seen = (est.backend, est.device.type, est.checkpoint)
+    check(seen[:2] == ("depthnet", "cuda") and str(seen[2]).endswith("depthnet.npz"),
+          f"depth3d_image: the estimator ran as {seen} (want DepthNet on cuda from depthnet.npz)")
+    depth = res["depth"]
+    check(depth.shape == (h, w) and np.isfinite(depth).all() and depth.min() == 0.0
+          and depth.max() == 1.0, f"depth3d_image: depth {depth.shape}, {depth.min()}..{depth.max()}")
+    t = time.time()
+    cpu = MonocularDepthEstimator(device="cpu").estimate_depth(img)
+    cpu_s = time.time() - t
+    err = float(np.abs(depth - cpu).max())
+    check(err <= DEPTH_CPU_TOL, f"depth3d_image: depth {err:.3e} off the CPU run's")
+    pts, cols = read_ply_points(res["cloud"])
+    verts, faces = read_obj_mesh(res["mesh"])
+    vis = imread(res["visualization"])
+    check(len(pts) == len(res["points"]) > 0 and cols is not None and len(faces) > 0
+          and np.isfinite(verts).all() and vis is not None and vis.shape[1] == 3 * vis.shape[0] * w // h,
+          f"depth3d_image: cloud {len(pts)}, mesh {verts.shape} {faces.shape}, panels "
+          f"{None if vis is None else vis.shape}")
+    x = torch.as_tensor(img, device=dev).flip(-1).permute(2, 0, 1)[None].float() / 255.0
+    convs = [m for m in est.net.modules() if isinstance(m, torch.nn.Conv2d)]
+    flops = []  # 2 * output elements * input channels * kernel taps, each convolution
+    hooks = [m.register_forward_hook(
+        lambda m, i, o: flops.append(2 * o.numel() * m.in_channels * m.kernel_size[0]
+                                     * m.kernel_size[1])) for m in convs]
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        est.net(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        for hk in hooks:
+            hk.remove()
+        net_ms = cuda_ms(torch, lambda: est.net(x), reps=5, warmup=2)
+    gflop = sum(flops) / 1e9
+    phase("depth3d_image", t0,
+          f"{h}x{w}: DepthNet from {seen[2]} on the card, depth within {err:.3e} of the CPU "
+          f"run ({cpu_s:.2f} s there); {len(pts)} points, {len(faces)} faces, panels "
+          f"{vis.shape}; DepthNet {net_ms:.3f} ms warm ({gflop:.1f} GFLOP of convolutions, "
+          f"{gflop / net_ms:.2f} TFLOP/s), peak {peak:.1f} MiB; the CLI "
+          f"{wall:.3f} s, stages {walls.fmt()}; launches {counts}; on {card}")
+    return counts
+
+
+def phase_depth3d_video(torch, dev, tmp: str, card: str) -> dict:
+    """The CLI's depth3d clip.npy --frame-step 4 --max-frames 8 on a seeded
+    360x640 clip of a drifting camera, then the same pipeline on the CPU:
+    each sampled frame's depth within DEPTH_CPU_TOL of the CPU's, the same
+    frames used, the merged count within 1%, and each ICP call's R and t
+    within ICP_PIPE_TOL of the CPU run's (each side on its own depths); then
+    each card ICP call within ICP_CPU_TOL of register_clouds on the CPU fed
+    the same clouds."""
+    from rtvm_tpu_torch import cli
+    from rtvm_tpu_torch.depth3d import estimator
+    from rtvm_tpu_torch.depth3d import pipeline as pl
+
+    t0 = time.time()
+    frames = make_clip(np.random.RandomState(SEED + 11), 29, FRAME_H, FRAME_W, DEPTH_VIDEO_STEP)[0]
+    clip = os.path.join(tmp, "depth_clip.npy")
+    np.save(clip, frames)
+    regs = {"card": [], "cpu": []}
+    depths = {"card": [], "cpu": []}
+    side = ["card"]
+    real = pl.register_clouds
+    real_depth = estimator.MonocularDepthEstimator.estimate_depth
+
+    def recording(src, dst, *a, **k):
+        r = real(src, dst, *a, **k)
+        regs[side[0]].append((src, dst, a, k, r.R.cpu().numpy(), r.t.cpu().numpy(),
+                              float(r.fitness), r.R.device.type))
+        return r
+
+    def recording_depth(self, img):
+        d = real_depth(self, img)
+        depths[side[0]].append((self.device.type, d))
+        return d
+
+    pl.register_clouds = recording
+    estimator.MonocularDepthEstimator.estimate_depth = recording_depth
+    try:
+        torch.cuda.synchronize()
+        t = time.time()
+        res, counts = counted(lambda: cli.main(
+            ["depth3d", clip, "--output-dir", os.path.join(tmp, "dv"), "--frame-step", "4",
+             "--max-frames", "8"]))
+        torch.cuda.synchronize()
+        wall = time.time() - t
+        side[0] = "cpu"
+        t = time.time()
+        cpu = pl.process_video_to_3d_model(clip, os.path.join(tmp, "dv_cpu"), frame_step=4,
+                                           max_frames=8, device="cpu")
+        cpu_s = time.time() - t
+    finally:
+        pl.register_clouds = real
+        estimator.MonocularDepthEstimator.estimate_depth = real_depth
+    check(counts == NO_LAUNCHES, f"depth3d_video: launch counts {counts}")
+    card_r, cpu_r = regs["card"], regs["cpu"]
+    check(res["frames_used"] == cpu["frames_used"] >= 2 and len(card_r) == len(cpu_r) == 7
+          and all(r[7] == "cuda" for r in card_r),
+          f"depth3d_video: frames used {res['frames_used']} (CPU {cpu['frames_used']}), ICP calls "
+          f"{[r[7] for r in card_r]} and {len(cpu_r)}")
+    on = [d[0] for d in depths["card"]], [d[0] for d in depths["cpu"]]
+    check(on == (["cuda"] * 8, ["cpu"] * 8), f"depth3d_video: depths ran on {on}")
+    d_err = max(float(np.abs(a[1] - b[1]).max()) for a, b in zip(depths["card"], depths["cpu"]))
+    check(d_err <= DEPTH_CPU_TOL, f"depth3d_video: depth {d_err:.3e} off the CPU run's")
+    pipe = [(float(np.abs(a[4] - b[4]).max()), float(np.abs(a[5] - b[5]).max()))
+            for a, b in zip(card_r, cpu_r)]
+    pipe_err = max(max(e) for e in pipe)
+    check(pipe_err <= ICP_PIPE_TOL,
+          f"depth3d_video: ICP transforms (R, t) against the CPU run's: {pipe}")
+    same_in = []  # each card call against register_clouds on the CPU with its clouds
+    for src, dst, a, k, R, tt, _, _ in card_r:
+        r = real(src, dst, *a, **dict(k, device="cpu"))
+        same_in.append((float(np.abs(R - r.R.numpy()).max()), float(np.abs(tt - r.t.numpy()).max())))
+    r_err = max(e[0] for e in same_in)
+    t_err = max(e[1] for e in same_in)
+    check(r_err <= ICP_CPU_TOL and t_err <= ICP_CPU_TOL,
+          f"depth3d_video: ICP on the card against the CPU on the same clouds: R {r_err:.3e}, "
+          f"t {t_err:.3e} (per call {same_in})")
+    # one ICP call on the card: its wall, and the syncs CUDA's debug mode
+    # reports in it (the two uploads of the clouds included)
+    import warnings
+
+    src, dst, a, k = card_r[-1][:4]
+    real(src, dst, *a, **k)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    real(src, dst, *a, **k)
+    torch.cuda.synchronize()
+    icp_ms = (time.perf_counter() - t) * 1e3
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            real(src, dst, *a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    n, n_cpu = len(res["points"]), len(cpu["points"])
+    check(abs(n - n_cpu) <= 0.01 * n_cpu, f"depth3d_video: {n} points, the CPU run {n_cpu}")
+    phase("depth3d_video", t0,
+          f"8 of 29 frames of {FRAME_H}x{FRAME_W}: {res['frames_used']} used (the CPU run's "
+          f"{cpu['frames_used']}), depths within {d_err:.3e} of the CPU run's, ICP fitness "
+          f"{[round(r[6], 4) for r in card_r]}; the transforms (R, t) against the CPU run's "
+          f"{[(float(f'{x:.2e}'), float(f'{y:.2e}')) for x, y in pipe]} (bound {ICP_PIPE_TOL:g}); "
+          f"each ICP call within R {r_err:.3e}, t {t_err:.3e} of the CPU's on the same clouds; "
+          f"{n} points (CPU {n_cpu}); one ICP call {icp_ms:.1f} ms, {syncs} syncs in it; the CLI "
+          f"{wall:.3f} s (the CPU run {cpu_s:.2f} s); launches {counts}; on {card}")
+    return counts
+
+
+def sphere_views(n_img: int = 96, f: float = 120.0, r_cam: float = 3.0, radius: float = 0.8):
+    """tests/test_tsdf.py:test_tsdf_fusion_sphere_depths' analytic z-depths
+    of a sphere from 4 cameras on a circle: (depths [4, n, n], K, poses)."""
+    K = np.array([[f, 0, n_img / 2], [0, f, n_img / 2], [0, 0, 1]], np.float32)
+    poses, depths = [], []
+    for a in np.linspace(0, 2 * np.pi, 5)[:-1]:
+        eye = np.array([r_cam * np.cos(a), r_cam * np.sin(a), 0.0])
+        fwd = -eye / np.linalg.norm(eye)
+        right = np.cross(fwd, np.array([0.0, 0.0, 1.0]))
+        right /= np.linalg.norm(right)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, 0], T[:3, 1], T[:3, 2], T[:3, 3] = right, -np.cross(right, fwd), fwd, eye
+        u, v = np.meshgrid(np.arange(n_img), np.arange(n_img))
+        d_cam = np.stack([(u - K[0, 2]) / K[0, 0], (v - K[1, 2]) / K[1, 1],
+                          np.ones_like(u, np.float32)], -1)
+        d_world = d_cam @ T[:3, :3].T
+        b = (d_world * T[:3, 3]).sum(-1)
+        aa = (d_world * d_world).sum(-1)
+        disc = b * b - aa * ((T[:3, 3] ** 2).sum() - radius * radius)
+        t = np.where(disc > 0, (-b - np.sqrt(np.maximum(disc, 0))) / aa, -1.0)
+        depth = np.where(t > 0, t, 0.0).astype(np.float32)
+        depths.append(np.where(depth > 0, (d_cam * depth[..., None])[..., 2], 0.0))
+        poses.append(T)
+    return np.stack(depths).astype(np.float32), K, np.stack(poses)
+
+
+def phase_depth3d_multiview(torch, dev, tmp: str, card: str) -> dict:
+    """The CLI's depth3d <dir> --multi-view on 4 views of a seeded world: the
+    ORB angles on the card within 0.5 degrees of the CPU's, the indicator
+    mesh route, the three files; then fuse_tsdf on the analytic sphere
+    depths, within TSDF_CPU_TOL of the CPU run."""
+    from rtvm_tpu_torch import cli
+    from rtvm_tpu_torch.depth3d import tsdf
+    from rtvm_tpu_torch.depth3d.pipeline import estimate_camera_angles_from_images
+    from rtvm_tpu_torch.io.ply import read_obj_mesh, read_ply_points
+    from rtvm_tpu_torch.io.png import imwrite_png
+
+    t0 = time.time()
+    world = make_world(np.random.RandomState(SEED + 12), FRAME_H, FRAME_W + 480)
+    views = [world[:, x : x + FRAME_W] for x in (0, 120, 280, 480)]  # unequal steps
+    vdir = os.path.join(tmp, "views")
+    os.makedirs(vdir, exist_ok=True)
+    for i, v in enumerate(views):
+        imwrite_png(os.path.join(vdir, f"view_{i}.png"), v)
+    out = os.path.join(tmp, "mv")
+    walls = _Walls(torch, [(tsdf, "indicator_mesh_from_points", "indicator")])
+    with walls:
+        torch.cuda.synchronize()
+        t = time.time()
+        res, counts = counted(lambda: cli.main(["depth3d", vdir, "--multi-view", "--output-dir", out]))
+        wall = time.time() - t
+    check("indicator" in walls.last, "depth3d_multiview: the indicator mesh did not run")
+    cpu_angles = estimate_camera_angles_from_images(views, device="cpu")
+    a_err = float(np.abs(np.array(res["angles"]) - np.array(cpu_angles)).max())
+    check(a_err <= 0.5, f"depth3d_multiview: angles {res['angles']} against the CPU's {cpu_angles}")
+    pts, _ = read_ply_points(res["cloud"])
+    verts, faces = read_obj_mesh(os.path.join(out, "multi_view_mesh.obj"))
+    check(len(pts) == len(res["points"]) > 0 and len(faces) > 0 and
+          os.path.exists(os.path.join(out, "multi_view_mesh.ply")),
+          f"depth3d_multiview: cloud {len(pts)}, mesh {faces.shape}")
+
+    depths, K, poses = sphere_views()
+    vols = {}
+    for d in (dev, "cpu"):
+        torch.cuda.synchronize()
+        t = time.time()
+        vols[str(d)], n = counted(lambda: tsdf.fuse_tsdf(
+            tsdf.make_tsdf((-1.2, -1.2, -1.2), 2.4, grid=72), depths, K, poses, device=d))
+        if d is dev:
+            counts = {k: counts[k] + n[k] for k in counts}
+        vols[str(d) + "_s"] = time.time() - t
+    vk, vc = vols[str(dev)], vols["cpu"]
+    t_err = float(np.abs(vk.tsdf - vc.tsdf).max())
+    check(t_err <= TSDF_CPU_TOL and np.array_equal(vk.weight, vc.weight),
+          f"fuse_tsdf: {t_err:.3e} off the CPU run, weights equal {np.array_equal(vk.weight, vc.weight)}")
+    check(counts == NO_LAUNCHES, f"depth3d_multiview: launch counts {counts}")
+    sv, sf = tsdf.tsdf_mesh(vk)
+    r_med = float(np.median(np.linalg.norm(sv, axis=1)))
+    check(len(sf) > 300 and abs(r_med - 0.8) < 0.08, f"fuse_tsdf: {len(sf)} faces, radius {r_med:.4f}")
+    phase("depth3d_multiview", t0,
+          f"4 views of {FRAME_H}x{FRAME_W}: angles {[round(a, 2) for a in res['angles']]} "
+          f"(within {a_err:.2e} of the CPU's), {len(pts)} points, indicator mesh {len(faces)} "
+          f"faces in {walls.walls['indicator']:.1f} ms; the CLI {wall:.3f} s; fuse_tsdf of 4 "
+          f"96x96 sphere depths on a 72^3 grid within {t_err:.3e} of the CPU run, "
+          f"{vols[str(dev) + '_s'] * 1e3:.1f} ms (CPU {vols['cpu_s'] * 1e3:.1f} ms), median "
+          f"radius {r_med:.4f}; launches {counts}; on {card}")
+    return counts
+
+
+def phase_terrain_3d(torch, dev, tmp: str, card: str) -> dict:
+    """The CLI's terrain <img> --reconstruct-3d --fast: the depth PNG equal to
+    the CPU run's but for at most TERRAIN_OFF_BY_ONE of its pixels one level
+    apart ((depth * 255).astype(uint8) truncates, so a 1e-6 depth gap can
+    flip a level); the bilateral and median filters on the card."""
+    from rtvm_tpu_torch import cli
+    from rtvm_tpu_torch.depth3d.pipeline import ImageTerrainReconstructor
+    from rtvm_tpu_torch.io.imread import imread
+    from rtvm_tpu_torch.io.png import imwrite_png
+    from rtvm_tpu_torch.ops import smooth
+    from rtvm_tpu_torch.utils.colormap import PLASMA_BGR
+
+    t0 = time.time()
+    h, w = TERRAIN_IMAGE
+    img = make_world(np.random.RandomState(SEED + 13), h, w)
+    work = os.path.join(tmp, "terrain3d")
+    os.makedirs(work, exist_ok=True)
+    src = os.path.join(work, "field.png")
+    imwrite_png(src, img)
+    devices = []
+    real = smooth.bilateral_filter_u8, smooth.median_blur_u8
+
+    def on(fn, name):
+        def wrapped(x, *a, **k):
+            devices.append((name, x.device.type))
+            return fn(x, *a, **k)
+        return wrapped
+
+    smooth.bilateral_filter_u8, smooth.median_blur_u8 = on(real[0], "bilateral"), on(real[1], "median")
+    here = os.getcwd()
+    os.chdir(work)
+    try:
+        torch.cuda.synchronize()
+        t = time.time()
+        _, counts = counted(lambda: cli.main(
+            ["terrain", src, "--output", "terrain.png", "--reconstruct-3d", "--fast"]))
+        wall = time.time() - t
+        card_devices = list(devices)
+        t = time.time()
+        cpu = ImageTerrainReconstructor(fast=True, device="cpu").process(src, "cpu")
+        cpu_s = time.time() - t
+    finally:
+        os.chdir(here)
+        smooth.bilateral_filter_u8, smooth.median_blur_u8 = real
+    check(counts == NO_LAUNCHES, f"terrain_3d: launch counts {counts}")
+    check(card_devices == [("bilateral", "cuda"), ("median", "cuda")],
+          f"terrain_3d: the filters ran as {card_devices}")
+    names = ["field_depth.png", "field_pointcloud.ply", "field_mesh.obj", "field_panels.png",
+             "terrain.png"]
+    missing = [n for n in names if not os.path.exists(os.path.join(work, n))]
+    check(not missing, f"terrain_3d: missing {missing}")
+    level = {tuple(c): i for i, c in enumerate(PLASMA_BGR.tolist())}
+    got, want = (imread(p) for p in (os.path.join(work, "field_depth.png"),
+                                     os.path.join(work, cpu["depth"])))
+    lg = np.array([level[tuple(c)] for c in got.reshape(-1, 3).tolist()])
+    lw = np.array([level[tuple(c)] for c in want.reshape(-1, 3).tolist()])
+    off = float((lg != lw).mean())
+    check(np.abs(lg - lw).max() <= 1 and off <= TERRAIN_OFF_BY_ONE,
+          f"terrain_3d: depth levels {off:.5f} apart from the CPU run (max "
+          f"{int(np.abs(lg - lw).max())})")
+    phase("terrain_3d", t0,
+          f"{h}x{w}: depth PNG levels equal to the CPU run's but {off:.5f} of the pixels (one "
+          f"level); bilateral and median on the card; the CLI {wall:.3f} s (analysis and "
+          f"reconstruction; the CPU reconstruction {cpu_s:.2f} s); launches {counts}; on {card}")
+    return counts
 
 
 def _timed_build(build):
@@ -1813,6 +2302,11 @@ def main() -> int:
             by_path["stream_1080p"], row_a_1080p = phase_stream_1080p(torch, dev, card)
             by_path["slam"] = phase_slam(torch, dev, tmp, card)
             by_path["terrain"] = phase_terrain(torch, dev, tmp, card)
+            by_path["sift_854"] = phase_sift_854(torch, dev, card)
+            by_path["depth3d_image"] = phase_depth3d_image(torch, dev, tmp, card)
+            by_path["depth3d_video"] = phase_depth3d_video(torch, dev, tmp, card)
+            by_path["depth3d_multiview"] = phase_depth3d_multiview(torch, dev, tmp, card)
+            by_path["terrain_3d"] = phase_terrain_3d(torch, dev, tmp, card)
         row_a = warp_real(torch, dev, frames[1 : 1 + WINDOW], sift_auxs[0].H_abs, hc, wc)
         row_a["at_1080p"] = row_a_1080p
         for row, key in ((row_a, "warp"), (row_b, "patches")):

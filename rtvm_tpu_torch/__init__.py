@@ -30,3 +30,13 @@ __version__ = "0.1.0"
 # as PyTorch's defaults.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+from rtvm_tpu_torch.config import MosaicConfig, PipelineConfig  # noqa: E402,F401
+from rtvm_tpu_torch.mosaic.stitcher import VideMosaic  # noqa: E402,F401
+
+
+def main(*args, **kwargs):
+    """Reference-parity pipeline entry (see rtvm_tpu_torch.pipelines.mosaic_pipeline.main)."""
+    from rtvm_tpu_torch.pipelines.mosaic_pipeline import main as _main
+
+    return _main(*args, **kwargs)

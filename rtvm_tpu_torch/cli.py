@@ -6,7 +6,11 @@
     python -m rtvm_tpu_torch mosaic --images-dir DIR [--output-dir DIR]
     python -m rtvm_tpu_torch slam <clip> [--output-dir DIR] [--max-frames N]
         [--viz-3d] [--webcam]
-    python -m rtvm_tpu_torch terrain <image> [--output OUT.jpg]
+    python -m rtvm_tpu_torch depth3d <clip | image | DIR> [--output-dir DIR]
+        [--multi-view] [--angle-mode auto|uniform|manual] [--frame-step N]
+        [--max-frames N] [--single-frame] [--model NAME]
+    python -m rtvm_tpu_torch terrain <image> [--output OUT.jpg|OUT.png]
+        [--reconstruct-3d [--fast] [--depth-scale S] [--no-vis]]
 
 The flags are the JAX CLI's, and as there a bare clip path means ``mosaic``.
 A clip is a video file (decoded with cv2, where it is installed), or a
@@ -16,10 +20,15 @@ command also detects objects on the mosaic and writes the navigation map;
 ``--no-detect`` and ``--no-nav`` leave them out; ``--images-dir`` runs the
 detection and the navigation map on each image of a directory instead.
 ``slam`` has no default clip (the JAX CLI falls back to a bundled video);
-``--webcam`` needs cv2 and ``--viz-3d`` matplotlib. ``terrain`` writes its
-picture as JPEG; ``--reconstruct-3d`` is not ported. The other subcommands
-of the JAX CLI exist and raise NotImplementedError (ROADMAP.md, Queue 1
-item 6).
+``--webcam`` needs cv2 and ``--viz-3d`` matplotlib. ``depth3d`` takes a
+directory (or ``--multi-view``) to the multi-view fusion, a ``.jpg``,
+``.jpeg`` or ``.png`` to the single-image route and anything else to the
+video route; DepthNet runs from ``weights/depthnet.npz`` (``depth3d/``;
+``--model`` is accepted and every name runs DepthNet). ``terrain`` writes
+its picture as JPEG or PNG; ``--reconstruct-3d`` adds the depth PNG, the
+cloud, the mesh and the depth panels in the working directory. The other
+subcommands of the JAX CLI exist and raise NotImplementedError (ROADMAP.md,
+Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -28,9 +37,9 @@ import argparse
 import os
 import sys
 
-OTHER_COMMANDS = ("depth3d", "stereo-demo", "view", "web", "gui", "menu")
+OTHER_COMMANDS = ("stereo-demo", "view", "web", "gui", "menu")
 NOT_PORTED = "the {!r} command is not ported yet (ROADMAP.md, Queue 1 item 6: {})"
-OTHER_ITEMS = {"depth3d": "depth3d/ with models/depthnet.py", "stereo-demo": "stereo/",
+OTHER_ITEMS = {"stereo-demo": "stereo/",
                "view": "viz/ with io/ply.py", "web": "the UI", "gui": "the UI",
                "menu": "menus.py"}
 
@@ -60,6 +69,16 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--max-frames", type=int, default=None)
     s.add_argument("--viz-3d", action="store_true", help="render trajectory PNG after run")
 
+    d = sub.add_parser("depth3d", help="monocular depth -> 3D reconstruction")
+    d.add_argument("input", help="video file or .npy clip, image file, or directory of images")
+    d.add_argument("--model", default="depth-anything-small")
+    d.add_argument("--output-dir", default=None)
+    d.add_argument("--single-frame", action="store_true")
+    d.add_argument("--multi-view", action="store_true")
+    d.add_argument("--angle-mode", default="auto", choices=["auto", "uniform", "manual"])
+    d.add_argument("--frame-step", type=int, default=30)
+    d.add_argument("--max-frames", type=int, default=8)
+
     t = sub.add_parser("terrain", help="terrain / soil analysis of an image")
     t.add_argument("image")
     t.add_argument("--output", default=None)
@@ -79,9 +98,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     """Run the CLI. Returns the command's result: main()'s (stitcher, stats)
     or, with --images-dir, its per-image list; slam's (slam, trajectory);
-    terrain's analysis."""
+    depth3d's pipeline result; terrain's analysis."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    known = {"mosaic", "slam", "terrain", *OTHER_COMMANDS, "-h", "--help"}
+    known = {"mosaic", "slam", "depth3d", "terrain", *OTHER_COMMANDS, "-h", "--help"}
     if argv and argv[0] not in known:
         argv = ["mosaic"] + argv
     elif not argv:
@@ -90,6 +109,8 @@ def main(argv=None):
 
     if args.cmd == "slam":
         return _slam(args)
+    if args.cmd == "depth3d":
+        return _depth3d(args)
     if args.cmd == "terrain":
         return _terrain(args)
     if args.cmd != "mosaic":
@@ -131,25 +152,45 @@ def _slam(args):
     return out
 
 
+def _depth3d(args):
+    """The depth3d command; returns the pipeline's result dict."""
+    from rtvm_tpu_torch.depth3d.pipeline import (process_multiple_images_to_3d,
+                                                 process_single_image, process_video_to_3d_model)
+
+    if os.path.isdir(args.input) or args.multi_view:
+        import glob
+
+        paths = sorted(
+            glob.glob(os.path.join(args.input, "*.jpg")) + glob.glob(os.path.join(args.input, "*.png"))
+        ) if os.path.isdir(args.input) else [args.input]
+        return process_multiple_images_to_3d(paths, args.output_dir, args.model, args.angle_mode)
+    if args.input.lower().endswith((".jpg", ".png", ".jpeg")):
+        return process_single_image(args.input, args.output_dir, args.model)
+    return process_video_to_3d_model(
+        args.input, args.output_dir, args.model,
+        frame_step=args.frame_step, max_frames=args.max_frames,
+        single_frame=args.single_frame,
+    )
+
+
 def _terrain(args):
     """The terrain command; returns the analysis."""
     from rtvm_tpu_torch.io.imread import imread
-    from rtvm_tpu_torch.io.jpeg import imwrite_jpg
+    from rtvm_tpu_torch.io.png import imwrite
     from rtvm_tpu_torch.slam.terrain import TerrainSoilAnalyzer
 
-    if args.reconstruct_3d:
-        raise NotImplementedError("--reconstruct-3d is not ported yet (ROADMAP.md, Queue 1 "
-                                  "item 6: depth3d/ with models/depthnet.py)")
     out = args.output or "terrain_analysis.jpg"
-    if not out.lower().endswith((".jpg", ".jpeg")):
-        raise ValueError(f"the port writes the terrain picture as JPEG; {out!r} names another "
-                         "format")
     img = imread(args.image)
     if img is None:
         sys.exit(f"cannot read image: {args.image}")
     analyzer = TerrainSoilAnalyzer()
     res = analyzer.analyze_image(img)
     print(analyzer.report(res))
-    imwrite_jpg(out, analyzer.visualize(img, res))
+    imwrite(out, analyzer.visualize(img, res))
     print(f"Визуализация: {out}")
+    if args.reconstruct_3d:
+        from rtvm_tpu_torch.depth3d.pipeline import ImageTerrainReconstructor
+
+        r = ImageTerrainReconstructor(args.model, args.depth_scale, fast=args.fast)
+        print(r.process(args.image, visualize=not args.no_vis))
     return res

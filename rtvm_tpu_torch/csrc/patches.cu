@@ -39,8 +39,13 @@
 //   blocks per SM that is up to ~110 KB of loads in flight per SM.
 //
 // TMA needs a 16-byte aligned base and row and batch strides that are
-// multiples of 16 bytes (W_o % 4 == 0); the wrapper checks that
-// (ops/pallas_patches.py:tma_constraints) and raises otherwise.
+// multiples of 16 bytes. The width W_o itself may be any size: a stack is
+// passed with its row pitch (a multiple of 4 floats, at least W_o), and a
+// box reaching past W_o is filled with zeros by TMA, never read from the
+// pitch's padding (a patch's own 32 columns lie inside W_o). The SIFT
+// levels are laid out with such a pitch (ops/features/sift.py:_octave_levels);
+// the wrapper checks the rule (ops/pallas_patches.py:tma_constraints) and
+// raises otherwise.
 // Origins are clamped to [0, R_o - 32] x [0, W_o - 32], dynamic_slice's rule.
 
 #include <cuda.h>
@@ -62,7 +67,7 @@
 static_assert(RTVM_BOX_BYTES % 128 == 0 && RTVM_PATCH_BYTES % 128 == 0, "slots stay 128-byte aligned");
 
 struct PatchOctaves {
-  CUtensorMap map[RTVM_OCT_MAX];  // 3-D over each stack: {W_o, R_o, B}
+  CUtensorMap map[RTVM_OCT_MAX];  // 3-D over each stack: {W_o, R_o, B}, rows `pitch` apart
   const int* ys[RTVM_OCT_MAX];    // [B, Q_o] row origins
   const int* xs[RTVM_OCT_MAX];    // [B, Q_o] column origins
   int q[RTVM_OCT_MAX];
@@ -203,9 +208,9 @@ static PFN_cuTensorMapEncodeTiled encode_fn() {
 #define RTVM_ERR_NO_ENCODE (-1)
 #define RTVM_ERR_ENCODE (-2)
 
-// n_oct octaves, described by 7 integers each in `args`: the stack's address
-// ([b, r, w] f32, row stride w, batch stride bstride elements), bstride, r,
-// w, the addresses of ys and xs ([b, q] int32, contiguous) and q. out is
+// n_oct octaves, described by 8 integers each in `args`: the stack's address
+// ([b, r, w] f32, row stride pitch, batch stride bstride elements), bstride,
+// r, w, the addresses of ys and xs ([b, q] int32, contiguous), q and pitch. out is
 // [b, sum q, 32, 32] f32, contiguous (all device memory). Returns 0 on
 // success, a CUDA error code, or one of the RTVM_ERR codes above.
 extern "C" int rtvm_extract_patches_octaves(int n_oct, const long long* args, int b, float* out,
@@ -218,14 +223,14 @@ extern "C" int rtvm_extract_patches_octaves(int n_oct, const long long* args, in
   long long items = 0;
   int q_total = 0;
   for (int o = 0; o < n_oct; ++o) {
-    const long long* a = args + 7 * o;
+    const long long* a = args + 8 * o;
     void* stack = reinterpret_cast<void*>(a[0]);
-    const long long bstride = a[1];
+    const long long bstride = a[1], pitch = a[7];
     const int r = (int)a[2], w = (int)a[3], q = (int)a[6];
-    if (r < RTVM_PATCH || w < RTVM_PATCH || q < 0 || w % 4 || bstride % 4)
+    if (r < RTVM_PATCH || w < RTVM_PATCH || q < 0 || pitch < w || pitch % 4 || bstride % 4)
       return (int)cudaErrorInvalidValue;
     const cuuint64_t dims[3] = {(cuuint64_t)w, (cuuint64_t)r, (cuuint64_t)b};
-    const cuuint64_t strides[2] = {(cuuint64_t)w * 4, (cuuint64_t)bstride * 4};
+    const cuuint64_t strides[2] = {(cuuint64_t)pitch * 4, (cuuint64_t)bstride * 4};
     const cuuint32_t box[3] = {RTVM_BOX_W, RTVM_PATCH, 1};
     const cuuint32_t unit[3] = {1, 1, 1};
     CUresult res = encode(&p.map[o], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, stack, dims, strides,

@@ -58,7 +58,10 @@ def _level_bands(deltas_key: tuple, h: int, w: int, device: torch.device):
 def _octave_levels(base: torch.Tensor, deltas: np.ndarray) -> torch.Tensor:
     """All Gaussian levels of one octave, each blurred directly from the base
     (Gaussian semigroup). base [B, H, W]; deltas[l] = sqrt(sigma_l^2 -
-    sigma_base^2). Returns [B, L, H, W]."""
+    sigma_base^2). Returns [B, L, H, W], a view whose rows are a multiple of
+    4 floats apart: kernel B's TMA route needs that row stride, and an
+    octave's width (W, ceil(W/2), ...) need not be one. The padding columns
+    are never read."""
     b, h, w = base.shape
     nz = [i for i, d in enumerate(deltas) if float(d) > 1e-6]
     if not nz:
@@ -67,14 +70,15 @@ def _octave_levels(base: torch.Tensor, deltas: np.ndarray) -> torch.Tensor:
     dk = tuple(round(float(deltas[i]), 6) for i in nz)
     by, bxt = _level_bands(dk, h, w, base.device)
     y = torch.matmul(by, torch.matmul(base[:, None], bxt))  # [B, len(nz), H, W]
-    out, j = [], 0
+    levels, j = [], 0
     for d in deltas:
         if float(d) > 1e-6:
-            out.append(y[:, j])
+            levels.append(y[:, j])
             j += 1
         else:
-            out.append(base)
-    return torch.stack(out, dim=1)
+            levels.append(base)
+    out = base.new_empty((b, len(deltas), h, -(-w // 4) * 4))[..., :w]
+    return torch.stack(levels, dim=1, out=out)
 
 
 def _detect_octave(dogs, quota, contrast_threshold, edge_r, border, overfetch=2):

@@ -68,11 +68,14 @@ def _check_inputs(stacks, ys, xs, patch: int) -> None:
 def tma_constraints(stacks, ys, xs, patch: int = PATCH) -> list:
     """Raise ValueError, with the reason, where the CUDA kernel cannot take
     these inputs: TMA wants a 16-byte aligned stack whose rows are contiguous
-    and whose row and batch strides are multiples of 16 bytes (W_o % 4 == 0);
-    the launch takes at most MAX_OCTAVES octaves and 32x32 patches; origins
-    are contiguous. Reads only shapes, strides and addresses. Returns the 7
-    integers per octave that csrc/patches.cu:rtvm_extract_patches_octaves
-    takes (stack address, batch stride, R, W, ys and xs addresses, Q)."""
+    and whose row and batch strides are multiples of 16 bytes. The width
+    W_o may be any size when the row stride (the pitch) is a multiple of 4
+    floats: the SIFT levels are laid out so (``features/sift.py:
+    _octave_levels``). The launch takes at most MAX_OCTAVES octaves and
+    32x32 patches; origins are contiguous. Reads only shapes, strides and
+    addresses. Returns the 8 integers per octave that
+    csrc/patches.cu:rtvm_extract_patches_octaves takes (stack address,
+    batch stride, R, W, ys and xs addresses, Q, pitch)."""
     if patch != PATCH:
         raise ValueError(f"the CUDA kernel cuts {PATCH}x{PATCH} patches, not {patch}")
     if len(stacks) > MAX_OCTAVES:
@@ -82,11 +85,12 @@ def tma_constraints(stacks, ys, xs, patch: int = PATCH) -> list:
         b, r, w = s.shape
         sb, sr, sw = s.stride()
         ptr = s.data_ptr()
-        if w % 4:
-            raise ValueError(f"octave {o}: TMA needs a row stride that is a multiple of 16 bytes; "
-                             f"width {w} is not a multiple of 4")
-        if sw != 1 or sr != w:
+        if sw != 1 or sr < w:
             raise ValueError(f"octave {o}: stack rows must be contiguous (strides {s.stride()})")
+        if sr % 4:
+            raise ValueError(f"octave {o}: TMA needs a row stride that is a multiple of 16 bytes; "
+                             f"the row stride {sr} (width {w}) is not a multiple of 4: lay the "
+                             f"rows out with a pitch, as features/sift.py:_octave_levels does")
         if b > 1 and sb % 4:
             raise ValueError(f"octave {o}: TMA needs a batch stride that is a multiple of 16 "
                              f"bytes, got {sb} floats")
@@ -96,7 +100,7 @@ def tma_constraints(stacks, ys, xs, patch: int = PATCH) -> list:
             raise ValueError(f"octave {o}: stack {tuple(s.shape)} too large for one tensor map")
         if not (y.is_contiguous() and x.is_contiguous()):
             raise ValueError(f"octave {o}: origins must be contiguous")
-        args += (ptr, sb if b > 1 else r * w, r, w, y.data_ptr(), x.data_ptr(), y.shape[1])
+        args += (ptr, sb if b > 1 else r * sr, r, w, y.data_ptr(), x.data_ptr(), y.shape[1], sr)
     return args
 
 
@@ -115,7 +119,7 @@ def extract_patches_octaves(stacks, ys, xs, patch: int = PATCH) -> torch.Tensor:
         raise ValueError(f"extract_patches_octaves: no kernel for device {dev}")
     args = tma_constraints(stacks, ys, xs, patch)
     b = stacks[0].shape[0]
-    qs = args[6::7]
+    qs = args[6::8]
     out = torch.empty((b, sum(qs), patch, patch), dtype=torch.float32, device=dev)
     if b == 0 or sum(qs) == 0:
         return out

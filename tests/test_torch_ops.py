@@ -340,12 +340,20 @@ mods = ["rtvm_tpu_torch", "rtvm_tpu_torch.config", "rtvm_tpu_torch.device",
         "rtvm_tpu_torch.navigate.mapping", "rtvm_tpu_torch.io.imread",
         "rtvm_tpu_torch.pipelines.images_pipeline", "rtvm_tpu_torch.slam.flow",
         "rtvm_tpu_torch.slam.epipolar", "rtvm_tpu_torch.slam.vo", "rtvm_tpu_torch.slam.runner",
-        "rtvm_tpu_torch.slam.terrain"]
+        "rtvm_tpu_torch.slam.terrain", "rtvm_tpu_torch.io.ply", "rtvm_tpu_torch.io.png",
+        "rtvm_tpu_torch.models.depthnet", "rtvm_tpu_torch.depth3d.estimator",
+        "rtvm_tpu_torch.depth3d.pointcloud", "rtvm_tpu_torch.depth3d.icp",
+        "rtvm_tpu_torch.depth3d.tsdf", "rtvm_tpu_torch.depth3d.mesh",
+        "rtvm_tpu_torch.depth3d.pipeline", "rtvm_tpu_torch.ops.smooth",
+        "rtvm_tpu_torch.utils.colormap"]
 for m in mods:
     importlib.import_module(m)
 py_compile.compile("chip_smoke.py", doraise=True)
 bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "cv2", "PIL", "rtvm_tpu", "matplotlib") and sys.modules[n] is not None)
 assert not bad, bad
+import rtvm_tpu_torch
+assert all(callable(getattr(rtvm_tpu_torch, n)) for n in ("MosaicConfig", "PipelineConfig",
+                                                          "VideMosaic", "main"))
 print("OK", len(mods))
 """
 
@@ -365,7 +373,23 @@ def test_port_imports_without_jax_cv2_or_reference_package():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_PROBE], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "OK 48"
+    assert proc.stdout.strip() == "OK 59"
+
+
+def test_port_root_has_the_jax_root_s_public_names():
+    import types
+
+    import rtvm_tpu
+    import rtvm_tpu_torch
+    from rtvm_tpu_torch.config import MosaicConfig
+    from rtvm_tpu_torch.mosaic.stitcher import VideMosaic
+
+    public = {n for n, v in vars(rtvm_tpu).items()
+              if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+    assert public == {"MosaicConfig", "PipelineConfig", "VideMosaic", "main"}
+    assert public <= set(vars(rtvm_tpu_torch))
+    assert rtvm_tpu_torch.VideMosaic is VideMosaic and rtvm_tpu_torch.MosaicConfig is MosaicConfig
+    assert rtvm_tpu_torch.__version__ == rtvm_tpu.__version__
 
 
 def test_default_device_is_cuda_and_never_falls_back():

@@ -97,13 +97,15 @@ def test_patch_wrapper_uses_plain_on_cpu_and_checks_its_inputs():
 
 def _octave_case(h, w, b=2, s=3, quotas=(21, 9, 5, 3), seed=11):
     """Per octave of an h x w frame: the levels 1..s stacked as a strided view
-    of a [B, s+3, H_o, W_o] level tensor (as detect_pyramid passes them) and
-    random in-range origins [B, Q_o]."""
+    of a [B, s+3, H_o, W_o] level tensor whose rows are a multiple of 4
+    floats apart (as detect_pyramid passes them) and random in-range origins
+    [B, Q_o]."""
     rng = np.random.RandomState(seed)
     stacks, ys, xs = [], [], []
     for o, q in enumerate(quotas):
-        ho, wo = h >> o, w >> o
-        levels = _t(rng.rand(b, s + 3, ho, wo).astype(np.float32))
+        ho, wo = -(-h // 2**o), -(-w // 2**o)
+        levels = torch.zeros(b, s + 3, ho, -(-wo // 4) * 4)[..., :wo]
+        levels.copy_(_t(rng.rand(b, s + 3, ho, wo).astype(np.float32)))
         stacks.append(levels[:, 1 : s + 1].reshape(b, s * ho, wo))
         ys.append(_t(rng.randint(0, s * ho - 32 + 1, (b, q)).astype(np.int32)))
         xs.append(_t(rng.randint(0, wo - 32 + 1, (b, q)).astype(np.int32)))
@@ -130,10 +132,25 @@ def test_patch_octaves_plain_is_the_per_octave_cut_and_the_pallas_kernel(h, w):
         col += q
 
 
-def test_tma_constraints_on_cpu_shapes():
+# frame sizes: the test's own, 360p, and the widths whose octaves are not
+# all multiples of 4 floats (480p's 854, PAL's 720, 2.7K's 2704), at fewer rows
+WIDTHS = [(96, 256), (96, 640), (288, 854), (288, 720), (288, 2704)]
+
+
+@pytest.mark.parametrize("h,w", WIDTHS)
+def test_tma_constraints_on_cpu_shapes(h, w):
+    stacks, ys, xs = _octave_case(h, w)
+    args = tma_constraints(stacks, ys, xs)  # the main path's layout passes
+    assert args[3::8] == [s.shape[2] for s in stacks]  # the width, and beside it
+    assert args[7::8] == [-(-s.shape[2] // 4) * 4 for s in stacks]  # the row pitch
+    for s, y, x in zip(stacks, ys, xs):
+        if s.shape[2] % 4:  # the same octave without the pitch
+            with pytest.raises(ValueError, match="multiple of 4"):
+                tma_constraints([s.contiguous()], [y], [x])
+    dense = [(s.contiguous(), y, x) for s, y, x in zip(stacks, ys, xs) if s.shape[2] % 4 == 0]
+    if dense:  # octaves of a 4-aligned width pass without the pitch as well
+        tma_constraints(*(list(a) for a in zip(*dense)))
     stacks, ys, xs = _octave_case(96, 256)
-    tma_constraints(stacks, ys, xs)  # the main path's layout passes
-    tma_constraints([s.contiguous() for s in stacks], ys, xs)
     one = [s[:1] for s in stacks], [y[:1] for y in ys], [x[:1] for x in xs]
     tma_constraints(*one)
     narrow = torch.zeros(2, 96, 90)  # 90 floats a row: not a multiple of 16 bytes
@@ -156,13 +173,18 @@ def test_tma_constraints_on_cpu_shapes():
         tma_constraints(stacks, ys, xs, patch=16)
 
 
-def test_detect_pyramid_feeds_one_patch_call_in_the_kernel_layout():
-    gray = _t(np.random.RandomState(4).rand(2, 128, 256).astype(np.float32) * 255)
+@pytest.mark.parametrize("h,w", [(128, 256)] + WIDTHS[2:])
+def test_detect_pyramid_feeds_one_patch_call_in_the_kernel_layout(h, w):
+    gray = _t(np.random.RandomState(4).rand(2 if w < 2000 else 1, h, w).astype(np.float32) * 255)
     cfg = TFeatureConfig()
     xy, valid, stacks, ys, xs, _ = TSF.detect_pyramid(gray, cfg)
     assert len(stacks) == cfg.sift_octaves and xy.shape[1] == valid.shape[1] == cfg.max_keypoints
     assert [y.shape[1] for y in ys] == TSF._octave_quotas(cfg.max_keypoints, cfg.sift_octaves, 4.0)
-    tma_constraints(stacks, ys, xs)  # widths 256..32: the CUDA route takes these views
+    assert [s.shape[2] for s in stacks] == [-(-w // 2**o) for o in range(cfg.sift_octaves)]
+    # every octave width, 4-aligned or not: the CUDA route takes these views
+    # (the rows lie a multiple of 4 floats apart)
+    args = tma_constraints(stacks, ys, xs)
+    assert all(p % 4 == 0 and p - wo < 4 for p, wo in zip(args[7::8], args[3::8]))
     patches = extract_patches_octaves(stacks, ys, xs)
     np.testing.assert_array_equal(
         patches.numpy(),
@@ -212,3 +234,58 @@ def test_detect_and_describe_descriptors_match_jax(sift_both):
     assert err.max() <= DESC_TOL_STEP, err.max()
     # invalid slots carry zero descriptors and zero positions in both
     assert not np.any(td[~tv]) and not np.any(txy[~tv])
+
+
+def _textured(h, w, seed):
+    """conftest.textured_image's recipe at another size."""
+    import cv2
+
+    rng = np.random.RandomState(seed)
+    img = cv2.GaussianBlur(rng.randint(0, 255, (h, w, 3)).astype(np.uint8), (0, 0), 1.2)
+    for _ in range(40 * (h * w) // (320 * 440)):
+        x, y = rng.randint(20, w - 20), rng.randint(20, h - 20)
+        c = tuple(int(v) for v in rng.randint(0, 255, 3))
+        if rng.rand() < 0.5:
+            cv2.rectangle(img, (x, y), (x + rng.randint(8, 40), y + rng.randint(8, 40)), c, -1)
+        else:
+            cv2.circle(img, (x, y), rng.randint(4, 20), c, -1)
+    return img
+
+
+# The share of identical keypoints whose descriptor is more than DESC_TOL off
+# (ROADMAP Queue 3 item 1: JAX's bf16 rounding of the rotation-bin fraction
+# flips on a 1e-7 pyramid difference) varies from image to image: on the 8
+# images below it was 0.0089-0.0267 of one image's keypoints, so one image
+# can cross DESC_MAX_OVER; pooled it was 87 of 5292 (0.0164), and every one
+# of them stays within DESC_TOL_STEP, a bf16 step of that fraction. The
+# share of identical slots is pooled too: seed 5's is 0.9557, because
+# keypoints of near-equal response swap neighbouring slots (the two sets of
+# 655 positions differ in 10).
+SIFT_854_SEEDS = range(8)
+
+
+def test_detect_and_describe_at_480x854_matches_jax(monkeypatch):
+    """480p's width 854 (octaves 854, 427, 214, 107) through the port's
+    pitched levels, on 8 seeded images: the same output, bit for bit, as with
+    contiguous levels, and held to JAX at the tolerances above, the share of
+    descriptors over DESC_TOL pooled over the images."""
+    grays = np.stack([np.asarray(JC.bgr2gray(jnp.asarray(_textured(480, 854, s))))
+                      for s in SIFT_854_SEEDS])
+    jfn = jax.jit(lambda g: JSF.detect_and_describe(g, FeatureConfig()))
+    jxy, jd, jv = (np.stack(a) for a in zip(*[[np.asarray(x) for x in jfn(jnp.asarray(g))]
+                                               for g in grays]))
+    txy, td, tv = (a.numpy() for a in TSF.detect_and_describe(_t(grays), TFeatureConfig()))
+    levels = TSF._octave_levels
+    monkeypatch.setattr(TSF, "_octave_levels", lambda b, d: levels(b, d).contiguous())
+    dense = [a.numpy() for a in TSF.detect_and_describe(_t(grays), TFeatureConfig())]
+    for got, want in zip((txy, td, tv), dense):
+        np.testing.assert_array_equal(got, want)
+    assert jv.sum(axis=1).min() > 500
+    same = (np.abs(jxy - txy).max(axis=-1) <= POS_TOL_PX) & (jv == tv)
+    assert same.mean() >= MIN_IDENTICAL, same.mean(axis=1)
+    held = same & jv & tv
+    err_all = np.abs(jd - td).max(axis=-1)
+    per_image = [float((e[k] > DESC_TOL).mean()) for e, k in zip(err_all, held)]
+    err = err_all[held]
+    assert (err > DESC_TOL).mean() <= DESC_MAX_OVER, (per_image, np.sort(err)[-10:])
+    assert err.max() <= DESC_TOL_STEP, err.max()

@@ -9,6 +9,7 @@ import torch
 
 from rtvm_tpu.slam import terrain as jterrain
 from rtvm_tpu_torch import cli
+from rtvm_tpu_torch.depth3d import estimator as testimator
 from rtvm_tpu_torch.io.imread import imread
 from rtvm_tpu_torch.io.jpeg import imwrite_jpg
 from rtvm_tpu_torch.slam import terrain as tterrain
@@ -127,10 +128,22 @@ def test_terrain_command(tmp_path, monkeypatch, analyzers):
     _close(res, analyzers[0].analyze_image(img))
     vis = imread(str(out))
     assert vis is not None and vis.shape == (200, 260 + 360, 3)
-    with pytest.raises(NotImplementedError, match="depth3d"):
-        cli.main(["terrain", str(src), "--reconstruct-3d"])
-    with pytest.raises(ValueError, match="JPEG"):
-        cli.main(["terrain", str(src), "--output", str(tmp_path / "x.png")])
+    # --reconstruct-3d writes the depth PNG, the cloud, the mesh and the
+    # panels into the working directory (DepthNet on the CPU here)
+    monkeypatch.chdir(tmp_path)
+    resolve = testimator.resolve_device
+    monkeypatch.setattr(testimator, "resolve_device", lambda d=None: resolve(d or "cpu"))
+    cli.main(["terrain", str(src), "--output", str(out), "--reconstruct-3d", "--fast"])
+    for name in ("soil_depth.png", "soil_pointcloud.ply", "soil_mesh.obj", "soil_panels.png"):
+        assert (tmp_path / name).exists(), name
+    assert imread(str(tmp_path / "soil_depth.png")).shape == (200, 260, 3)
+    # a .png picture is written as PNG, losslessly
+    res = cli.main(["terrain", str(src), "--output", str(tmp_path / "x.png")])
+    want = tterrain.TerrainSoilAnalyzer(device="cpu").visualize(img, res)
+    np.testing.assert_array_equal(imread(str(tmp_path / "x.png")), want)
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / "x.png")), want)
+    with pytest.raises(ValueError, match="PNG and JPEG"):
+        cli.main(["terrain", str(src), "--output", str(tmp_path / "x.bmp")])
     with pytest.raises(SystemExit):
         cli.main(["terrain", str(tmp_path / "missing.jpg"), "--output", str(out)])
     imwrite_jpg(str(tmp_path / "soil.jpg"), img)

@@ -3,6 +3,7 @@
 
     python3 tools/ab_kernels.py --make-inputs .tree_check/ab_inputs.pt
     python3 tools/ab_kernels.py --inputs .tree_check/ab_inputs.pt --tree DIR [--label NAME]
+    python3 tools/ab_kernels.py --sift-window --tree DIR [--label NAME]
 
 --make-inputs runs chip_smoke.py's synthetic clip through this checkout's
 VideMosaic for one 16-frame window of 360x640 frames and saves that window's
@@ -19,6 +20,15 @@ and times, on those inputs:
     torch.cat of the four results. "kernel" counts only the patch kernels'
     time on the card; "path" is the host-clock time of the whole cut.
 Prints one JSON line. Imports torch, numpy and the checkout's package only.
+
+--sift-window times, for the checkout at --tree, the SIFT window step on
+chip_smoke.py's clip (this checkout's: 1 + 3 x 16 frames of 360x640
+drifting (2, -4) px a frame): six runs of VideMosaic(detector_type="sift")
+over the three windows; the first run and each run's first window are left
+out, and the median and quartiles of the rest (host clock around a
+synchronised process_window) are printed, beside _octave_levels on 16
+random 360x640 frames (CUDA events, 50 calls). To compare two checkouts,
+run them in turns in one call on one card: parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -141,12 +151,54 @@ def time_tree(path: str, tree: str, label: str) -> None:
     print(json.dumps(res))
 
 
+def time_window(tree: str, label: str) -> None:
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+
+    import rtvm_tpu_torch
+    from rtvm_tpu_torch.mosaic.stitcher import VideMosaic
+    from rtvm_tpu_torch.ops.features import sift
+
+    if not os.path.abspath(rtvm_tpu_torch.__file__).startswith(tree):
+        raise SystemExit(f"imported {rtvm_tpu_torch.__file__}, not the package under {tree}")
+    sys.path.insert(1, ROOT)
+    import chip_smoke as cs
+
+    dev = torch.device("cuda")
+    h, w = cs.FRAME_H, cs.FRAME_W
+    frames, _ = cs.make_clip(np.random.RandomState(cs.SEED), 1 + 3 * cs.WINDOW, h, w)
+    wins = [torch.as_tensor(frames[1 + i * cs.WINDOW : 1 + (i + 1) * cs.WINDOW]).to(dev)
+            for i in range(3)]
+    secs = []
+    for rep in range(6):
+        m = VideMosaic(frames[0], detector_type="sift", seed=cs.SEED, device=dev)
+        for i, win in enumerate(wins):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m.process_window(win)
+            torch.cuda.synchronize()
+            if rep > 0 and i > 0:
+                secs.append(time.perf_counter() - t)
+    base = torch.rand(cs.WINDOW, h, w, device=dev)
+    s = 3
+    sig = np.array([1.6 * 2 ** (lvl / s) for lvl in range(s + 3)], np.float32)
+    deltas = np.sqrt(np.maximum(sig**2 - sig[0] ** 2, 0.0))
+    levels_ms = cs.cuda_ms(torch, lambda: sift._octave_levels(base, deltas), reps=50)
+    q1, med, q3 = (float(np.percentile(secs, p)) * 1e3 for p in (25, 50, 75))
+    print(f"{label} {h}x{w}: window median {med:.2f} ms (quartiles {q1:.2f}-{q3:.2f}, "
+          f"{len(secs)} windows), _octave_levels {levels_ms:.4f} ms on "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--make-inputs", default=None, help="write the window's inputs here")
     ap.add_argument("--inputs", default=None, help="inputs written by --make-inputs")
     ap.add_argument("--tree", default=ROOT, help="checkout whose rtvm_tpu_torch is timed")
     ap.add_argument("--label", default=None)
+    ap.add_argument("--sift-window", action="store_true",
+                    help="time the checkout's SIFT window step and _octave_levels")
     args = ap.parse_args()
     import torch
 
@@ -155,6 +207,9 @@ def main() -> int:
         return 2
     if args.make_inputs:
         make_inputs(args.make_inputs)
+        return 0
+    if args.sift_window:
+        time_window(args.tree, args.label or args.tree)
         return 0
     if not args.inputs:
         ap.error("--inputs is required with --tree")
