@@ -16,7 +16,9 @@ Phases, each printed with its result and seconds on its own line:
      seeded synthetic world through VideMosaic.process_window, checked against
      the known camera path and against the same run with the plain versions
      swapped in; windows 2-3 run with CUDA's sync debug mode set to "error",
-     so a device sync inside the window step fails the phase;
+     so a device sync inside the window step fails the phase; then kernel A
+     against its plain version on the maps of window 1, timed through
+     warp_batch (phase `warp_real`, also on the card with torch.profiler);
   6. the ORB window step (BASELINE config 1), the same clip and checks, with
      kernel A as its only kernel;
   7. the detection of BASELINE config 3, for YOLOv8n and then YOLO11n: the
@@ -77,8 +79,20 @@ Phases, each printed with its result and seconds on its own line:
      analytic sphere depths against the CPU), and terrain --reconstruct-3d
      --fast (phase `terrain_3d`: the depth PNG against the CPU run, the
      bilateral and median filters on the card);
- 16. kernel A against its plain version on the maps of a window of the SIFT
-     run, and timed through warp_batch on them;
+ 16. slice 9: the CLI's view --backend offscreen --size 1920x1080 on
+     depth3d_image's cloud and mesh (phase `view`: 1080x1920 PNGs equal to
+     the port's CPU render on 0.999 of the pixels, the splat's warm time,
+     the host's parts, peak memory); the CLI's stereo-demo (phase
+     `stereo_demo`: the medians of 5 and 20 px, the CPU run's disparity);
+     StereoTerrainMapper on a 480x640 slanted plane with 128 disparities
+     (phase `stereo_480p`: raw SGM against the truth, the integer and
+     refined disparity against the CPU run, SGM's time with the aggregation
+     apart, its launches, peak memory); main_menu() with a scripted input
+     (phase `menu`: the viewer's offscreen render of the mesh, equal to
+     view's); the port's web server in a thread (phase `web`: a 1 + 16
+     frame .npy clip through /upload, /start and /progress on the mosaic
+     CLI's defaults, mosaic.jpg from /results, launches warp 1 and patches
+     2). The gui command is not driven: the card's machine has no display;
 then one JSON line of per-kernel numbers, the elapsed time, and as the last
 line {"ok": true, "device": {...}}. Any failed check exits non-zero. Without
 a CUDA device it prints no result and exits non-zero.
@@ -2224,6 +2238,331 @@ def phase_terrain_3d(torch, dev, tmp: str, card: str) -> dict:
     return counts
 
 
+STEREO_SIZE = (480, 640)
+STEREO_DISP = (8.0, 64.0)  # px from the left edge to the right: 0.088 px a pixel, tests/test_stereo.py's slope
+STEREO_NUM_DISP = 128  # the estimator's default, the reference's SGBM numDisparities
+STEREO_MARGIN = 80  # px of texture beyond each side, so the right view never samples past it
+
+
+def slanted_pair(rng: np.random.RandomState, h: int, w: int, d0: float, d1: float,
+                 margin: int = STEREO_MARGIN, sigma: float = 1.2):
+    """tests/test_stereo.py's slanted plane at any size: blurred noise seen
+    by a left camera and by a right one whose disparity ramps linearly from
+    d0 at the left edge to d1 at the right (the right pixel xr sees the left
+    pixel xl = (xr + d0) / (1 - s)). Returns uint8 BGR left and right views
+    and the true disparity of each left pixel."""
+    tex = rng.randint(0, 255, (h, w + 2 * margin)).astype(np.float64)
+    tex = _blur_axis(_blur_axis(tex, sigma, 0), sigma, 1)
+    xs = np.arange(w, dtype=np.float64)
+    s = (d1 - d0) / (w - 1)
+    src = margin + (xs + d0) / (1.0 - s)
+    x0 = np.floor(src).astype(int)
+    frac = src - x0
+    right = tex[:, x0] * (1 - frac) + tex[:, x0 + 1] * frac
+    left = tex[:, margin : margin + w]
+
+    def bgr(g):
+        return np.repeat(np.clip(np.rint(g), 0, 255).astype(np.uint8)[..., None], 3, -1)
+
+    return bgr(left), bgr(right), np.tile(d0 + s * xs, (h, 1)).astype(np.float32)
+
+
+STEREO_CPU_TOL = 1e-3  # px: the refined disparity, card against the port's CPU run
+STEREO_MAX_MAE = 0.5  # px: raw SGM against the truth on valid pixels (JAX on a CPU: 0.1238)
+STEREO_MIN_VALID = 0.9  # share of the pixels raw SGM keeps (JAX on a CPU: 0.9891)
+STEREO_SAME_INT = 0.999  # share of pixels whose integer disparity equals the CPU run's
+VIEW_SIZE = (1080, 1920)  # the JAX default of view --backend offscreen
+VIEW_SAME_PIXELS = 0.999  # a projection at half a pixel may round the other way
+WEB_LIMIT_S = 300.0  # the web phase's wait for /progress to read done
+
+
+def kernel_launches(torch, fn):
+    """CUDA kernels launched by one call of fn, from torch.profiler (None
+    when the profiler shows no device activity)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    n = sum(1 for e in prof.events() if e.device_type == cuda
+            and not e.name.startswith(("Memcpy", "Memset")))
+    return n or None
+
+
+def phase_view(torch, dev, tmp: str, card: str) -> tuple:
+    """The CLI's view --backend offscreen --size 1920x1080 on the cloud and
+    the mesh that depth3d_image wrote: each PNG decodes to 1080x1920 and is
+    not background only, and equals the port's CPU render of the same
+    arrays on at least VIEW_SAME_PIXELS of the pixels; the splat's warm time
+    (CUDA events), the host's parts (reading the file, sampling the
+    surfels, the PNG), peak memory. Returns (counts, the mesh render)."""
+    from rtvm_tpu_torch import cli
+    from rtvm_tpu_torch.io import ply, png
+    from rtvm_tpu_torch.io.imread import imread
+    from rtvm_tpu_torch.viz import render
+
+    t0 = time.time()
+    src = os.path.join(tmp, "depth3d_image")
+    counts, notes, mesh_img = dict(NO_LAUNCHES), [], None
+    for name, kind in (("scene_pointcloud.ply", "cloud"), ("scene_mesh.obj", "mesh")):
+        path, out = os.path.join(src, name), os.path.join(tmp, f"view_{kind}.png")
+        targets = [(ply, "read_ply_points", "read"), (ply, "read_obj_mesh", "read"),
+                   (render, "sample_mesh_surfels", "surfels"), (render, "splat", "splat"),
+                   (png, "imwrite", "png")]
+        with _Walls(torch, targets) as walls:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.time()
+            got, c = counted(lambda: cli.main(["view", path, "--backend", "offscreen", "--size",
+                                               f"{VIEW_SIZE[1]}x{VIEW_SIZE[0]}", "--out", out]))
+            wall = time.time() - t
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        check(c == NO_LAUNCHES, f"view {kind}: launch counts {c}")
+        counts = {k: counts[k] + c[k] for k in counts}
+        args = walls.last["splat"][0]
+        check(got == out and args[0].device.type == "cuda", f"view {kind}: wrote {got}, splat on "
+              f"{args[0].device}")
+        img = imread(out)
+        check(img is not None and img.shape == VIEW_SIZE + (3,), f"view {kind}: PNG "
+              f"{None if img is None else img.shape}")
+        painted = float((img != 255).any(-1).mean())
+        check(painted > 0.01, f"view {kind}: {painted:.4f} of the picture painted")
+        data = walls.last["read"][1]
+        t = time.time()
+        if kind == "cloud":
+            cpu = render.render_points(*data, VIEW_SIZE[1], VIEW_SIZE[0], device="cpu")
+        else:
+            cpu = render.render_mesh(*data, width=VIEW_SIZE[1], height=VIEW_SIZE[0], device="cpu")
+            mesh_img = img
+        cpu_s = time.time() - t
+        same = float((img[..., ::-1] == cpu).all(-1).mean())
+        check(same >= VIEW_SAME_PIXELS, f"view {kind}: {same:.5f} of the pixels equal the CPU "
+              "render's")
+        ms = cuda_ms(torch, lambda: render.splat(*args), reps=10, warmup=2)
+        n_pts, psize = args[0].shape[0], args[6]
+        notes.append(f"{kind} {n_pts} points ({n_pts * psize * psize} splats): splat {ms:.3f} ms "
+                     f"warm, the CLI {wall:.3f} s (stages {walls.fmt()}), peak {peak:.1f} MiB, "
+                     f"{painted:.4f} painted, {same:.5f} of the pixels equal to the CPU render "
+                     f"({cpu_s:.2f} s there)")
+    phase("view", t0, "; ".join(notes) + f"; launches {counts}; on {card}")
+    return counts, mesh_img
+
+
+def phase_stereo_demo(torch, dev, tmp: str, card: str) -> dict:
+    """The CLI's stereo-demo: SGM on the card, the medians of the two
+    rectangles within 1.5 px of 5 and 20 (tests/test_stereo.py's oracle),
+    the disparity against the port's CPU run (the invalid masks equal, the
+    rest within STEREO_CPU_TOL), the two PNGs."""
+    from rtvm_tpu_torch import cli
+    from rtvm_tpu_torch.io.imread import imread
+    from rtvm_tpu_torch.stereo import depth as sd
+
+    t0 = time.time()
+    out = os.path.join(tmp, "stereo_demo")
+    with _Walls(torch, [(sd, "sgm_disparity", "sgm")]) as walls:
+        torch.cuda.synchronize()
+        t = time.time()
+        (left, _, disp), counts = counted(lambda: cli.main(["stereo-demo", "--output-dir", out]))
+        wall = time.time() - t
+    check(counts == NO_LAUNCHES, f"stereo_demo: launch counts {counts}")
+    check(walls.last["sgm"][0][0].device.type == "cuda", "stereo_demo: SGM did not run on the card")
+    far, near = disp[28:44, 96:124], disp[78:98, 48:84]
+    mf, mn = float(np.median(far[far > 0])), float(np.median(near[near > 0]))
+    check(abs(mf - 5) <= 1.5 and abs(mn - 20) <= 1.5, f"stereo_demo: medians {mf}, {mn}")
+    cpu = sd.demo_stereo_depth(device="cpu")[2]
+    both = (disp >= 0) & (cpu >= 0)
+    err = float(np.abs(disp - cpu)[both].max())
+    check(np.array_equal(disp < 0, cpu < 0) and err <= STEREO_CPU_TOL,
+          f"stereo_demo: against the CPU run: masks equal {np.array_equal(disp < 0, cpu < 0)}, "
+          f"disparity within {err:.3e}")
+    shown = imread(os.path.join(out, "stereo_disparity.png"))
+    check(np.array_equal(imread(os.path.join(out, "stereo_left.png")), left)
+          and shown is not None and shown.shape == left.shape, "stereo_demo: the PNGs")
+    phase("stereo_demo", t0,
+          f"medians {mf:.3f} and {mn:.3f} px (want 5 and 20), {both.mean():.4f} valid; within "
+          f"{err:.3e} px of the CPU run, masks equal; the CLI {wall:.3f} s; launches {counts}; "
+          f"on {card}")
+    return counts
+
+
+def phase_stereo_480p(torch, dev, card: str) -> dict:
+    """StereoTerrainMapper().process_stereo_frame on a seeded 480x640
+    slanted plane with disparities from 8 to 64 px, 128 disparities: raw SGM
+    against the truth (MAE at most STEREO_MAX_MAE px on the valid pixels, at
+    least STEREO_MIN_VALID of them valid); against the port's CPU run, the
+    integer disparity equal on STEREO_SAME_INT of the pixels and the refined
+    disparity within STEREO_CPU_TOL; SGM's warm time with the aggregation
+    apart (CUDA events), its launches, peak memory."""
+    from rtvm_tpu_torch.stereo import depth as sd
+    from rtvm_tpu_torch.stereo import sgm
+
+    t0 = time.time()
+    h, w = STEREO_SIZE
+    left, right, gt = slanted_pair(np.random.RandomState(SEED + 14), h, w, *STEREO_DISP)
+    stages = [(sd, "sgm_disparity", "sgm"), (sd, "speckle_suppress", "speckle"),
+              (sd, "guided_refine", "guided")]
+    runs = {}
+    for where in ("cuda", "cpu"):
+        mapper = sd.StereoTerrainMapper(device=None if where == "cuda" else "cpu")
+        check(mapper.est.num_disparities == STEREO_NUM_DISP, "stereo_480p: the default disparities")
+        with _Walls(torch, stages) as walls:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.time()
+            res, c = counted(lambda: mapper.process_stereo_frame(left, right))
+            runs[where] = (res, c, time.time() - t, walls, torch.cuda.max_memory_allocated() / 2**20)
+    res, counts, wall, walls, peak = runs["cuda"]
+    check(counts == NO_LAUNCHES, f"stereo_480p: launch counts {counts}")
+    (gl, gr, _), raw = walls.last["sgm"]
+    check(gl.device.type == "cuda", f"stereo_480p: SGM ran on {gl.device}")
+    raw_d = raw.disparity.cpu().numpy()
+    valid = raw_d >= 0
+    mae = float(np.abs(raw_d - gt)[valid].mean())
+    check(valid.mean() >= STEREO_MIN_VALID and mae <= STEREO_MAX_MAE,
+          f"stereo_480p: raw SGM {valid.mean():.4f} valid, MAE {mae:.4f} px against the truth")
+    cpu_res, _, cpu_s, cpu_walls, _ = runs["cpu"]
+    same_int = float((raw.cost_volume.argmin(-1).cpu().numpy()
+                      == cpu_walls.last["sgm"][1].cost_volume.argmin(-1).numpy()).mean())
+    d, dc = res["disparity"], cpu_res["disparity"]
+    both = (d >= 0) & (dc >= 0)
+    same_mask = float(((d >= 0) == (dc >= 0)).mean())
+    err = float(np.abs(d - dc)[both].max())
+    check(same_int >= STEREO_SAME_INT and same_mask >= STEREO_SAME_INT and err <= STEREO_CPU_TOL,
+          f"stereo_480p: against the CPU run: integer disparity equal on {same_int:.5f}, masks on "
+          f"{same_mask:.5f}, refined within {err:.3e} px")
+    check(np.isfinite(res["cloud"]).all() and res["cloud"].shape[1] == 6
+          and res["disparity_vis"].shape == (h, w, 3), "stereo_480p: the products")
+    sgm_ms = cuda_ms(torch, lambda: sgm.sgm_disparity(gl, gr, STEREO_NUM_DISP), reps=3, warmup=1)
+    cost = sgm.build_cost_volume(gl, gr, STEREO_NUM_DISP)
+    cost_ms = cuda_ms(torch, lambda: sgm.build_cost_volume(gl, gr, STEREO_NUM_DISP), reps=3,
+                      warmup=1)
+    agg_ms = cuda_ms(torch, lambda: sgm.aggregate(cost), reps=3, warmup=1)
+    host_ms = host_us(torch, lambda: sgm.aggregate(cost), reps=3) / 1e3
+    n_sgm = kernel_launches(torch, lambda: sgm.sgm_disparity(gl, gr, STEREO_NUM_DISP))
+    n_agg = kernel_launches(torch, lambda: sgm.aggregate(cost))
+    phase("stereo_480p", t0,
+          f"{h}x{w}, {STEREO_NUM_DISP} disparities, truth {STEREO_DISP[0]:g}-{STEREO_DISP[1]:g} px: "
+          f"raw SGM MAE {mae:.4f} px on {valid.mean():.4f} valid; against the CPU run integer "
+          f"disparity equal on {same_int:.5f}, refined within {err:.3e} px (masks {same_mask:.5f}); "
+          f"SGM {sgm_ms:.2f} ms warm (cost volume {cost_ms:.2f}, aggregation {agg_ms:.2f}, its "
+          f"enqueue on the host {host_ms:.2f}), {n_sgm or 'not measured'} kernel launches a "
+          f"call ({n_agg or 'not measured'} in the aggregation); the pair {wall:.3f} s end to end (stages "
+          f"{walls.fmt()}), the CPU run {cpu_s:.2f} s; peak {peak:.1f} MiB; launches {counts}; "
+          f"on {card}")
+    return counts
+
+
+def phase_menu(torch, dev, tmp: str, card: str, mesh_img) -> dict:
+    """main_menu() with a scripted input(): the 3-D viewer (option 5) on the
+    directory of view's files, file 1 (the mesh), the offscreen render
+    (backend 2), then exit. The render runs on the card and equals view's
+    render of the same mesh."""
+    import builtins
+
+    from rtvm_tpu_torch import menus
+    from rtvm_tpu_torch.io.imread import imread
+    from rtvm_tpu_torch.viz import render
+
+    t0 = time.time()
+    src = os.path.join(tmp, "depth3d_image")
+    answers = iter(["5", src, "1", "2", "0"])
+    real_input = builtins.input
+    builtins.input = lambda prompt="": next(answers)
+    try:
+        with _Walls(torch, [(render, "splat", "splat")]) as walls:
+            _, counts = counted(menus.main_menu)
+    finally:
+        builtins.input = real_input
+    check(counts == NO_LAUNCHES, f"menu: launch counts {counts}")
+    check(walls.last["splat"][0][0].device.type == "cuda", "menu: the render did not run on the card")
+    img = imread(os.path.join(src, "scene_mesh_render.png"))
+    check(img is not None and np.array_equal(img, mesh_img),
+          "menu: the render differs from view's render of the mesh")
+    phase("menu", t0, f"viewer: scene_mesh.obj rendered on the card at {img.shape[1]}x"
+                      f"{img.shape[0]}, equal to view's; launches {counts}; on {card}")
+    return counts
+
+
+def _multipart(name: str, payload: bytes) -> tuple:
+    boundary = "----rtvmchipsmoke"
+    head = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"video\"; filename=\"{name}\""
+            "\r\nContent-Type: application/octet-stream\r\n\r\n").encode()
+    return (head + payload + f"\r\n--{boundary}--\r\n".encode(),
+            {"Content-Type": f"multipart/form-data; boundary={boundary}"})
+
+
+def phase_web(torch, dev, tmp: str, card: str) -> dict:
+    """The port's web server on 127.0.0.1 in a thread: a 1 + 16 frame
+    360x640 .npy clip through /upload (multipart), /start and /progress
+    (until done, within WEB_LIMIT_S) on the mosaic CLI's defaults (SIFT,
+    detection and navigation); /results lists mosaic.jpg and it decodes.
+    Launches warp 1 and patches 2 (one patch launch for the first frame, one
+    for the window). An error state fails the phase."""
+    import http.client
+    import io
+    import threading
+
+    from rtvm_tpu_torch.io.imread import imdecode
+    from rtvm_tpu_torch.ui import web_app
+
+    t0 = time.time()
+    frames = make_clip(np.random.RandomState(SEED + 15), 1 + WINDOW, FRAME_H, FRAME_W)[0]
+    buf = io.BytesIO()
+    np.save(buf, frames)
+    app = web_app.WebApp(os.path.join(tmp, "web"))
+    srv = web_app.make_server("127.0.0.1", 0, app)
+    port = srv.server_address[1]
+    server = threading.Thread(target=srv.serve_forever, daemon=True)
+    server.start()
+
+    def req(method, path, body=None, headers=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request(method, path, body, headers or {})
+        r = conn.getresponse()
+        data = r.read()
+        conn.close()
+        return r.status, data
+
+    states = []
+
+    def run():
+        check(req("POST", "/start")[0] == 200, "web: /start refused")
+        t = time.time()
+        while time.time() - t < WEB_LIMIT_S:
+            p = json.loads(req("GET", "/progress")[1])
+            states.append((p["state"], p["frame"]))
+            if p["state"] in ("done", "error"):
+                return p
+            time.sleep(0.1)
+        return p
+
+    try:
+        status, page = req("GET", "/")
+        check(status == 200 and "Аэромозаика" in page.decode(), f"web: / gave {status}")
+        status, body = req("POST", "/upload", *_multipart("clip.npy", buf.getvalue()))
+        check(status == 200 and json.loads(body) == {"ok": True, "path": "clip.npy"},
+              f"web: /upload gave {status} {body[:200]!r}")
+        t = time.time()
+        p, counts = counted(run)
+        wall = time.time() - t
+        check(p["state"] == "done", f"web: /progress ended at {p}")
+        files = json.loads(req("GET", "/results")[1])["files"]
+        status, jpg = req("GET", files.get("mosaic.jpg", "/results-files/mosaic.jpg"))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        server.join(timeout=30)
+    check(counts == {"warp": 1, "patches": 2}, f"web: launch counts {counts}")
+    img = imdecode(jpg) if status == 200 else None
+    check(img is not None and img.ndim == 3, f"web: mosaic.jpg gave {status}")
+    running = sorted({f for s, f in states if s == "running"})
+    phase("web", t0,
+          f"upload, start, {len(states)} polls of /progress (frames seen running: {running}) to "
+          f"done in {wall:.3f} s; /results lists {sorted(files)}; mosaic.jpg {img.shape}; "
+          f"launches {counts}; on {card}")
+    return counts
+
+
 def _timed_build(build):
     t = time.time()
     return build(), time.time() - t
@@ -2280,6 +2619,7 @@ def main() -> int:
         # all its octaves, plus one for the first frame's features
         sift_counts, sift_auxs, sift_m, sift_fps = phase_window(
             torch, dev, frames, cam, card, "sift", {"warp": N_WINDOWS, "patches": N_WINDOWS + 1})
+        row_a = warp_real(torch, dev, frames[1 : 1 + WINDOW], sift_auxs[0].H_abs, hc, wc)
         # ORB: one warp launch per window; its patches are uint8 cuts (no kernel)
         orb_counts = phase_window(torch, dev, frames, cam, card, "orb",
                                   {"warp": N_WINDOWS, "patches": 0})[0]
@@ -2307,7 +2647,11 @@ def main() -> int:
             by_path["depth3d_video"] = phase_depth3d_video(torch, dev, tmp, card)
             by_path["depth3d_multiview"] = phase_depth3d_multiview(torch, dev, tmp, card)
             by_path["terrain_3d"] = phase_terrain_3d(torch, dev, tmp, card)
-        row_a = warp_real(torch, dev, frames[1 : 1 + WINDOW], sift_auxs[0].H_abs, hc, wc)
+            by_path["view"], mesh_img = phase_view(torch, dev, tmp, card)
+            by_path["stereo_demo"] = phase_stereo_demo(torch, dev, tmp, card)
+            by_path["stereo_480p"] = phase_stereo_480p(torch, dev, card)
+            by_path["menu"] = phase_menu(torch, dev, tmp, card, mesh_img)
+            by_path["web"] = phase_web(torch, dev, tmp, card)
         row_a["at_1080p"] = row_a_1080p
         for row, key in ((row_a, "warp"), (row_b, "patches")):
             row["launches_by_path"] = {p: c[key] for p, c in by_path.items()}

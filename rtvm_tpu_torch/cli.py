@@ -11,6 +11,12 @@
         [--max-frames N] [--single-frame] [--model NAME]
     python -m rtvm_tpu_torch terrain <image> [--output OUT.jpg|OUT.png]
         [--reconstruct-3d [--fast] [--depth-scale S] [--no-vis]]
+    python -m rtvm_tpu_torch stereo-demo [--output-dir DIR]
+    python -m rtvm_tpu_torch view <file.ply | file.obj> [--out OUT.png]
+        [--backend auto|matplotlib|offscreen] [--size WxH]
+    python -m rtvm_tpu_torch web [--host HOST] [--port PORT]
+    python -m rtvm_tpu_torch gui
+    python -m rtvm_tpu_torch menu
 
 The flags are the JAX CLI's, and as there a bare clip path means ``mosaic``.
 A clip is a video file (decoded with cv2, where it is installed), or a
@@ -26,9 +32,15 @@ directory (or ``--multi-view``) to the multi-view fusion, a ``.jpg``,
 video route; DepthNet runs from ``weights/depthnet.npz`` (``depth3d/``;
 ``--model`` is accepted and every name runs DepthNet). ``terrain`` writes
 its picture as JPEG or PNG; ``--reconstruct-3d`` adds the depth PNG, the
-cloud, the mesh and the depth panels in the working directory. The other
-subcommands of the JAX CLI exist and raise NotImplementedError (ROADMAP.md,
-Queue 1 item 6).
+cloud, the mesh and the depth panels in the working directory.
+``stereo-demo`` runs SGM on the synthetic pair and writes
+``stereo_left.png`` and ``stereo_disparity.png``. ``view`` renders a cloud
+or mesh to a PNG: ``offscreen`` is the port's z-buffer rasterizer at
+``--size``, ``matplotlib`` needs matplotlib, and ``auto`` takes matplotlib
+for at most 150,000 points where it is installed (the JAX rule) and the
+rasterizer otherwise, saying so (the card has no matplotlib). ``web`` serves
+the web UI (``ui/web_app.py``), ``gui`` opens the tkinter window (where
+tkinter and a display exist) and ``menu`` the text menus (``menus.py``).
 """
 
 from __future__ import annotations
@@ -37,11 +49,8 @@ import argparse
 import os
 import sys
 
-OTHER_COMMANDS = ("stereo-demo", "view", "web", "gui", "menu")
-NOT_PORTED = "the {!r} command is not ported yet (ROADMAP.md, Queue 1 item 6: {})"
-OTHER_ITEMS = {"stereo-demo": "stereo/",
-               "view": "viz/ with io/ply.py", "web": "the UI", "gui": "the UI",
-               "menu": "menus.py"}
+COMMANDS = ("mosaic", "slam", "depth3d", "terrain", "stereo-demo", "view", "web", "gui", "menu")
+MATPLOTLIB_MAX_POINTS = 150_000  # view --backend auto: the JAX CLI's limit for matplotlib
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -88,24 +97,37 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--fast", action="store_true")
     t.add_argument("--no-vis", action="store_true")
 
-    for name in OTHER_COMMANDS:
-        o = sub.add_parser(name, help=f"not ported yet (ROADMAP.md, Queue 1 item 6: "
-                                      f"{OTHER_ITEMS[name]})")
-        o.add_argument("args", nargs=argparse.REMAINDER)
+    sd = sub.add_parser("stereo-demo", help="synthetic stereo depth demo")
+    sd.add_argument("--output-dir", default=".")
+
+    v = sub.add_parser("view", help="render a .ply/.obj to PNG")
+    v.add_argument("path")
+    v.add_argument("--out", default=None)
+    v.add_argument("--backend", choices=["auto", "matplotlib", "offscreen"], default="auto",
+                   help="offscreen = the z-buffer rasterizer at --size")
+    v.add_argument("--size", default="1920x1080", help="offscreen render size WxH")
+
+    w = sub.add_parser("web", help="start the web UI")
+    w.add_argument("--host", default="127.0.0.1")
+    w.add_argument("--port", type=int, default=5000)
+
+    sub.add_parser("gui", help="start the desktop GUI")
+    sub.add_parser("menu", help="interactive text menu (reference-style)")
     return p
 
 
 def main(argv=None):
     """Run the CLI. Returns the command's result: main()'s (stitcher, stats)
     or, with --images-dir, its per-image list; slam's (slam, trajectory);
-    depth3d's pipeline result; terrain's analysis."""
+    depth3d's pipeline result; terrain's analysis; stereo-demo's (left,
+    right, disparity); the path view wrote."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    known = {"mosaic", "slam", "depth3d", "terrain", *OTHER_COMMANDS, "-h", "--help"}
-    if argv and argv[0] not in known:
+    if argv and argv[0] not in {*COMMANDS, "-h", "--help"}:
         argv = ["mosaic"] + argv
     elif not argv:
         argv = ["mosaic"]
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
 
     if args.cmd == "slam":
         return _slam(args)
@@ -113,8 +135,22 @@ def main(argv=None):
         return _depth3d(args)
     if args.cmd == "terrain":
         return _terrain(args)
-    if args.cmd != "mosaic":
-        raise NotImplementedError(NOT_PORTED.format(args.cmd, OTHER_ITEMS[args.cmd]))
+    if args.cmd == "stereo-demo":
+        return _stereo_demo(args)
+    if args.cmd == "view":
+        return _view(args, parser)
+    if args.cmd == "web":
+        from rtvm_tpu_torch.ui.web_app import main as web_main
+
+        return web_main(args.host, args.port)
+    if args.cmd == "gui":
+        from rtvm_tpu_torch.ui.gui import main as gui_main
+
+        return gui_main()
+    if args.cmd == "menu":
+        from rtvm_tpu_torch.menus import main_menu
+
+        return main_menu()
     import dataclasses
 
     from rtvm_tpu_torch.config import MosaicConfig, PipelineConfig
@@ -194,3 +230,52 @@ def _terrain(args):
         r = ImageTerrainReconstructor(args.model, args.depth_scale, fast=args.fast)
         print(r.process(args.image, visualize=not args.no_vis))
     return res
+
+
+def _stereo_demo(args):
+    """The stereo-demo command; returns (left, right, disparity)."""
+    import numpy as np
+
+    from rtvm_tpu_torch.io.png import imwrite_png
+    from rtvm_tpu_torch.stereo.depth import StereoDepthEstimator, demo_stereo_depth
+
+    left, right, disp = demo_stereo_depth()
+    os.makedirs(args.output_dir, exist_ok=True)
+    imwrite_png(os.path.join(args.output_dir, "stereo_left.png"), left)
+    imwrite_png(os.path.join(args.output_dir, "stereo_disparity.png"),
+                StereoDepthEstimator.colorize_disparity(disp))
+    v = disp[disp > 0]
+    print(f"Диспаритет: медиана {float(np.median(v)):.1f}px, валидных {len(v)}")
+    return left, right, disp
+
+
+def _view(args, parser):
+    """The view command; returns the path of the picture written."""
+    from rtvm_tpu_torch.io.ply import read_obj_mesh, read_ply_points
+
+    backend = args.backend
+    if backend == "auto":
+        try:
+            import matplotlib  # noqa: F401
+        except ImportError:
+            backend = "offscreen"
+            print("view: matplotlib is not installed; rendering with the rasterizer")
+        else:
+            n = (len(read_obj_mesh(args.path)[0]) if args.path.endswith(".obj")
+                 else len(read_ply_points(args.path)[0]))
+            backend = "offscreen" if n > MATPLOTLIB_MAX_POINTS else "matplotlib"
+    if backend == "offscreen":
+        from rtvm_tpu_torch.viz.render import render_offscreen
+
+        try:
+            w, h = (int(x) for x in args.size.lower().split("x"))
+        except ValueError:
+            parser.error(f"--size must look like 1920x1080, got {args.size!r}")
+        out = render_offscreen(args.path, args.out, width=w, height=h)
+    else:
+        from rtvm_tpu_torch.viz.pointcloud_viewer import view_matplotlib, view_mesh_matplotlib
+
+        out = (view_mesh_matplotlib if args.path.endswith(".obj") else view_matplotlib)(
+            args.path, args.out)
+    print(out)
+    return out

@@ -30,8 +30,12 @@ def _cv2():
     return cv2
 
 
-def get_video_files(data_dir: str) -> list:
-    """The .mp4, .avi and .mov clips of `data_dir`, sorted."""
+DATA_DIR = "Data"  # the reference's clip folder, relative to the working directory
+
+
+def get_video_files(data_dir: str = DATA_DIR) -> list:
+    """The .mp4, .avi and .mov clips of `data_dir` (default ``Data/`` of the
+    working directory), sorted."""
     vids = []
     for ext in ("*.mp4", "*.avi", "*.mov"):
         vids.extend(glob.glob(os.path.join(data_dir, ext)))

@@ -316,7 +316,8 @@ def test_ransac_fails_cleanly_with_too_few_matches():
 
 _IMPORT_PROBE = """
 import sys
-for name in ("jax", "jaxlib", "cv2", "PIL", "rtvm_tpu", "matplotlib"):
+for name in ("jax", "jaxlib", "cv2", "PIL", "rtvm_tpu", "matplotlib", "plotly", "open3d",
+             "tkinter", "ui"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import importlib, py_compile
 mods = ["rtvm_tpu_torch", "rtvm_tpu_torch.config", "rtvm_tpu_torch.device",
@@ -345,11 +346,15 @@ mods = ["rtvm_tpu_torch", "rtvm_tpu_torch.config", "rtvm_tpu_torch.device",
         "rtvm_tpu_torch.depth3d.pointcloud", "rtvm_tpu_torch.depth3d.icp",
         "rtvm_tpu_torch.depth3d.tsdf", "rtvm_tpu_torch.depth3d.mesh",
         "rtvm_tpu_torch.depth3d.pipeline", "rtvm_tpu_torch.ops.smooth",
-        "rtvm_tpu_torch.utils.colormap"]
+        "rtvm_tpu_torch.utils.colormap", "rtvm_tpu_torch.stereo.sgm",
+        "rtvm_tpu_torch.stereo.refine", "rtvm_tpu_torch.stereo.depth",
+        "rtvm_tpu_torch.viz.render", "rtvm_tpu_torch.viz.html3d",
+        "rtvm_tpu_torch.viz.pointcloud_viewer", "rtvm_tpu_torch.menus",
+        "rtvm_tpu_torch.ui.web_app", "rtvm_tpu_torch.ui.gui"]
 for m in mods:
     importlib.import_module(m)
 py_compile.compile("chip_smoke.py", doraise=True)
-bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "cv2", "PIL", "rtvm_tpu", "matplotlib") and sys.modules[n] is not None)
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "cv2", "PIL", "rtvm_tpu", "matplotlib", "plotly", "open3d", "tkinter", "ui") and sys.modules[n] is not None)
 assert not bad, bad
 import rtvm_tpu_torch
 assert all(callable(getattr(rtvm_tpu_torch, n)) for n in ("MosaicConfig", "PipelineConfig",
@@ -373,7 +378,7 @@ def test_port_imports_without_jax_cv2_or_reference_package():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_PROBE], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip() == "OK 59"
+    assert proc.stdout.strip() == "OK 68"
 
 
 def test_port_root_has_the_jax_root_s_public_names():
