@@ -93,6 +93,20 @@ Phases, each printed with its result and seconds on its own line:
      frame .npy clip through /upload, /start and /progress on the mosaic
      CLI's defaults, mosaic.jpg from /results, launches warp 1 and patches
      2). The gui command is not driven: the card's machine has no display;
+ 17. slice 10, the trainers (each in a temporary directory, never
+     weights/): one full-width YOLOv8n loss + AdamW step (batch 16 at 320)
+     against the port's CPU run on the same batch (phase `train_step`:
+     loss, gradients, BatchNorm statistics, parameters; the warm step's ms
+     and peak memory); train_synth.train for 20 steps at its defaults
+     (phase `train_synth`: the loss finite and falling, the checkpoint's
+     treedef equal to the bundled one and loaded by ObjectDetector,
+     --resume continuing at step 21; ms a step with the host's make_batch
+     apart); evaluate on weights/yolov8n_aerial.npz (phase `eval_yolo`:
+     mAP50 against its report, 4 scenes against the CPU); the same for
+     the open-vocabulary trainer and weights/yolov8n_world.npz (phase
+     `train_world`); train_depth.main with --steps 1 --lr 0 against
+     weights/depthnet.json, then 20 steps at its defaults (phase
+     `train_depth`);
 then one JSON line of per-kernel numbers, the elapsed time, and as the last
 line {"ok": true, "device": {...}}. Any failed check exits non-zero. Without
 a CUDA device it prints no result and exits non-zero.
@@ -2563,6 +2577,454 @@ def phase_web(torch, dev, tmp: str, card: str) -> dict:
     return counts
 
 
+# ------------------------------------------------------------- training (slice 10)
+
+TRAIN_SIZE, TRAIN_BATCH = 320, 16  # the trainers' defaults (imgsz, batch)
+TRAIN_STEPS = 20  # each trainer's steps on the card (its defaults run 3000-4000)
+TRAIN_STEP_LR = 1e-3  # train_step: init_train_state's constant-rate AdamW
+# train_step, card against the port's float32 CPU run on the same batch (TF32
+# off): the loss relative; each gradient leaf's relative L2 where its norm is
+# above GRAD_NOISE of the global norm (else within GRAD_NOISE of the global
+# norm); the BatchNorm statistics after the step |d| / (1 + |v|); the share of
+# parameters within 1e-5 after the step (Adam moves a noise-sized gradient's
+# weight by about the rate either way) and the largest |d| (2 x the rate).
+# Set from the first run on an H100 (PERF.md, section 6): loss rel 0, gradients
+# 1.059e-3, statistics 1.1e-7, parameters 0.998997 within 1e-5 and 1.92e-3 at
+# most; the tests hold the CPU run to JAX's at 1e-3 and 0.999 (tier 1)
+STEP_BOUNDS = {"loss": 1e-4, "grad": 5e-3, "stats": 1e-4, "params_share": 0.995,
+               "params_max": 2 * TRAIN_STEP_LR}
+GRAD_NOISE = 1e-5
+EVAL_N = 48  # held-out scenes of the trainers' reports
+MAP_GAP = 0.03  # |mAP50 - the bundled report's|: bf16 (closed set) or float32 (world) inference
+EVAL_CPU_SCENES = 4  # held-out scenes whose detections the card's run holds to the CPU's
+DEPTH_REPORT_TOL = 5e-3  # abs_rel and pearson of `--steps 1 --lr 0` against weights/depthnet.json
+DEPTH_ARGS: list = []  # train_depth.main's size and batch: its defaults (240x320, batch 8)
+
+
+def _bundled_yolo(torch, dev, model: str = "yolov8n"):
+    from rtvm_tpu_torch.models.yolo.convert import flax_to_state_dict
+    from rtvm_tpu_torch.models.yolo.model import build_yolo
+    from rtvm_tpu_torch.utils.checkpoint import load_pytree_npz
+
+    path = DETECT_MODELS[model][0]
+    m = build_yolo(model, num_classes=8, device="cpu")
+    m.load_state_dict(flax_to_state_dict(load_pytree_npz(path), model))
+    return m.to(dev)
+
+
+class _Steps:
+    """Wraps make_train_step of models/yolo/train.py: each step's wall (up
+    to a synchronize) and loss, and the count of steps."""
+
+    def __init__(self, torch):
+        from rtvm_tpu_torch.models.yolo import train as TT
+
+        self.torch, self.mod, self.real = torch, TT, TT.make_train_step
+        self.ms, self.losses = [], []
+
+    def __enter__(self):
+        def make(model, tx):
+            step = self.real(model, tx)
+
+            def timed(state, images, targets):
+                t = time.perf_counter()
+                out = step(state, images, targets)
+                self.losses.append(float(out[1]["loss"]))  # reads back: waits for the step
+                self.ms.append((time.perf_counter() - t) * 1e3)
+                return out
+            return timed
+        self.mod.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.make_train_step = self.real
+
+
+def _grad_report(want: dict, got: dict) -> tuple:
+    """(largest relative L2 of the leaves above GRAD_NOISE of the global
+    norm, largest |d| of the others over the global norm)."""
+    gnorm = math.sqrt(sum(float((v.astype(np.float64) ** 2).sum()) for v in want.values()))
+    big, small = 0.0, 0.0
+    for k, v in want.items():
+        n, err = float(np.linalg.norm(v)), float(np.linalg.norm(got[k] - v))
+        if n > GRAD_NOISE * gnorm:
+            big = max(big, err / n)
+        else:
+            small = max(small, err / gnorm)
+    return big, small
+
+
+def _profile_step(torch, fn) -> tuple:
+    """(the card's kernel time in ms as text, kernel launches, the three
+    largest kernels by time) of one call of fn, from torch.profiler."""
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == cuda
+           and not e.name.startswith(("Memcpy", "Memset"))]
+    if not evs:
+        return "not measured", 0, "not measured"
+    by_name = {}
+    for e in evs:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    total = sum(by_name.values())
+    return (f"{total:.2f} ms", len(evs),
+            ", ".join(f"{name[:60]} {ms:.2f} ms" for name, ms in top))
+
+
+def phase_train_step(torch, dev, card: str) -> dict:
+    """One yolo_loss + AdamW step at full width (YOLOv8n, batch 16, 320, the
+    bundled checkpoint, init_train_state's optimizer) on the card and on the
+    CPU with the same batch: loss, gradients, BatchNorm statistics and
+    parameters within STEP_BOUNDS; then the step's warm ms and peak memory."""
+    from rtvm_tpu_torch.models.yolo import synth
+    from rtvm_tpu_torch.models.yolo import train as TT
+    from rtvm_tpu_torch.models.yolo.convert import torch_to_flax_arrays
+    from rtvm_tpu_torch.models.yolo.train_synth import _bgr_to_rgb01
+
+    t0 = time.time()
+    rng = np.random.RandomState(SEED + 20)
+    imgs, boxes, cls, valid = synth.make_batch(rng, synth.BackgroundPool(TRAIN_SIZE, rng=rng),
+                                              TRAIN_BATCH, TRAIN_SIZE)
+    out = {}
+    for where in ("cpu", dev):
+        model = _bundled_yolo(torch, where)
+        state, tx = TT.init_train_state(model, lr=TRAIN_STEP_LR)
+        x = _bgr_to_rgb01(torch.from_numpy(imgs).to(where))
+        tg = TT.Targets(*(torch.from_numpy(a).to(where) for a in (boxes, cls, valid)))
+        step = TT.make_train_step(model, tx)
+        if where == dev:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            (state, metrics), counts = counted(lambda: step(state, x, tg))
+        else:
+            state, metrics = step(state, x, tg)
+        # the step leaves each gradient in .grad (clipped, as the update took it)
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        out[str(where)] = dict(loss=float(metrics["loss"]), pos=float(metrics["num_pos"]),
+                               grads=torch_to_flax_arrays(grads),
+                               stats=torch_to_flax_arrays(dict(model.named_buffers())),
+                               params=torch_to_flax_arrays(dict(model.named_parameters())),
+                               state=state, step=step, x=x, tg=tg)
+    ref, got = out["cpu"], out[str(dev)]
+    loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    grad_big, grad_small = _grad_report(ref["grads"], got["grads"])
+    stats = max(float(np.max(np.abs(got["stats"][k] - v) / (1 + np.abs(v))))
+                for k, v in ref["stats"].items())
+    d = np.concatenate([np.abs(got["params"][k] - v).ravel() for k, v in ref["params"].items()])
+    share, pmax = float((d <= 1e-5).mean()), float(d.max())
+
+    # warm: further steps on the card, each up to a synchronize
+    st, step = got["state"], got["step"]
+    for _ in range(2):
+        step(st, got["x"], got["tg"])
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(5):
+        t = time.perf_counter()
+        step(st, got["x"], got["tg"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    busy, launches, top = _profile_step(torch, lambda: step(st, got["x"], got["tg"]))
+    torch.cuda.set_sync_debug_mode("error")  # reported, not a gate: a sync costs only time
+    try:
+        step(st, got["x"], got["tg"])
+        syncs = "no device sync inside the step"
+    except RuntimeError as e:
+        syncs = f"a device sync inside the step ({str(e).splitlines()[0][:120]})"
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    worst = max(((float(np.linalg.norm(got["grads"][k] - v)) / max(float(np.linalg.norm(v)), 1e-30),
+                  k) for k, v in ref["grads"].items()), key=lambda t: t[0])
+    phase("train_step", t0,
+          f"YOLOv8n batch {TRAIN_BATCH} at {TRAIN_SIZE} from {DETECT_MODELS['yolov8n'][0]}: loss "
+          f"{got['loss']:.6f} (CPU {ref['loss']:.6f}, rel {loss_rel:.3e}), {got['pos']:.0f} "
+          f"assigned cells (CPU {ref['pos']:.0f}); gradients: largest relative L2 {grad_big:.3e} "
+          f"of the leaves above {GRAD_NOISE} of the global norm, the others within "
+          f"{grad_small:.3e} of it; BatchNorm statistics within {stats:.3e} (1 + |v|); "
+          f"parameters after the step within 1e-5 on {share:.6f}, largest |d| {pmax:.3e}; "
+          f"warm step {np.median(ms):.2f} ms (median of {len(ms)}: "
+          f"{', '.join(f'{v:.2f}' for v in ms)}); {busy} of the card's time in {launches} "
+          f"kernel launches a step (torch.profiler), the largest {top}; {syncs}; the worst gradient "
+          f"leaf {worst[1]} ({worst[0]:.3e}); peak {peak / 2**20:.1f} MiB allocated; launches "
+          f"{counts}; on {card}")
+    check(got["pos"] == ref["pos"], "train_step: the card assigned other cells than the CPU")
+    check(loss_rel <= STEP_BOUNDS["loss"] and grad_big <= STEP_BOUNDS["grad"]
+          and grad_small <= GRAD_NOISE and stats <= STEP_BOUNDS["stats"]
+          and share >= STEP_BOUNDS["params_share"] and pmax <= STEP_BOUNDS["params_max"],
+          f"train_step: beyond {STEP_BOUNDS}")
+    check(counts == NO_LAUNCHES, f"train_step: launch counts {counts}")
+    return counts
+
+
+def _train_run(torch, trainer, stem: str, out: str, **kw):
+    """trainer.train at its defaults but TRAIN_STEPS steps, logged each
+    step, the report at the end; the steps' walls and losses and the host's
+    make_batch apart. Returns (state, model, steps, synthesis walls, counts)."""
+    with _Walls(torch, [(trainer, "make_batch", "make_batch")]) as walls, _Steps(torch) as steps:
+        (state, model), counts = counted(lambda: trainer.train(
+            steps=TRAIN_STEPS, batch=TRAIN_BATCH, imgsz=TRAIN_SIZE, lr=2e-3, log_every=1,
+            eval_every=TRAIN_STEPS, out_dir=out, **kw))
+    check(sorted(os.listdir(out)) == sorted(f"{stem}{e}" for e in (".json", ".npz", "_trainstate.npz")),
+          f"{stem}: wrote {sorted(os.listdir(out))}")
+    return state, model, steps, walls, counts
+
+
+def _train_checks(name: str, stem: str, out: str, steps: "_Steps", bundled: str) -> str:
+    losses = steps.losses
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+          f"{name}: losses {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    check(last < first, f"{name}: the loss did not fall: first 5 {first:.4f}, last 5 {last:.4f}")
+    with np.load(os.path.join(out, f"{stem}.npz")) as a, np.load(bundled) as b:
+        same = bytes(a["__treedef__"]) == bytes(b["__treedef__"])
+    check(same, f"{name}: __treedef__ differs from {bundled}'s")
+    return f"loss {losses[0]:.3f} -> {losses[-1]:.3f} (mean of the first 5 {first:.3f}, last 5 {last:.3f})"
+
+
+def _resume_check(torch, name: str, trainer, stem: str, out: str, dev) -> str:
+    """--resume from the trainstate continues at the next step: one more
+    step, and the written report says TRAIN_STEPS + 1."""
+    again = os.path.join(out, "resumed")
+    with _Steps(torch) as steps:
+        state, _ = trainer.train(steps=TRAIN_STEPS + 1, batch=TRAIN_BATCH, imgsz=TRAIN_SIZE,
+                                 lr=2e-3, log_every=1, eval_every=TRAIN_STEPS + 1, out_dir=again,
+                                 resume=os.path.join(out, f"{stem}_trainstate.npz"), device=dev)
+    report = json.load(open(os.path.join(again, f"{stem}.json")))
+    check(len(steps.losses) == 1 and state.step == TRAIN_STEPS + 1
+          and report["step"] == TRAIN_STEPS + 1,
+          f"{name}: resumed run took {len(steps.losses)} steps to step {state.step}")
+    return f"--resume continued at step {TRAIN_STEPS + 1} ({steps.ms[0]:.1f} ms)"
+
+
+def _scene_share(card_dets: list, cpu_dets: list, gap: float) -> tuple:
+    """(least share of matched detections over the scenes, (card count, CPU
+    count)) at IoU >= 0.9, the same class and a score gap <= gap."""
+    shares = [_dict_share(w, g, 0.9, gap) for w, g in zip(cpu_dets, card_dets)]
+    return min(shares), (sum(len(d) for d in card_dets), sum(len(d) for d in cpu_dets))
+
+
+def _world_scenes(torch, model, imgs: np.ndarray):
+    """(flat float32 logits on the host, detection dicts) of the world model
+    on scenes with the class names as prompts, as train_world.evaluate runs
+    it (float32, conf 0.25, IoU 0.45)."""
+    from rtvm_tpu_torch.models.yolo import postprocess as pp
+    from rtvm_tpu_torch.models.yolo.synth import AERIAL_CLASSES
+    from rtvm_tpu_torch.models.yolo.train_synth import _bgr_to_rgb01, _dets
+    from rtvm_tpu_torch.models.yolo.train_world import _tokens
+
+    dev = next(model.parameters()).device
+    ids, mask = _tokens(AERIAL_CLASSES, dev)
+    with torch.inference_mode():
+        box_l, cls_l = model.eval()(_bgr_to_rgb01(torch.from_numpy(imgs).to(dev)), ids, mask)
+        boxes, scores = pp.decode_predictions(box_l, cls_l, model.cfg.strides, model.cfg.reg_max)
+        det = pp.nms_fixed(boxes, scores, 0.25, 0.45)
+        table = torch.cat([det.boxes, det.scores[..., None], det.classes[..., None].float(),
+                           det.valid[..., None].float()], -1).cpu().numpy()
+        logits = torch.cat([v.flatten().cpu() for o in (box_l, cls_l) for v in o])
+    return logits, [_dets(rows) for rows in table]
+
+
+def train_synth_eval_set(n: int) -> np.ndarray:
+    from rtvm_tpu_torch.models.yolo.train_synth import make_eval_set
+
+    return make_eval_set(n, TRAIN_SIZE)[0]
+
+
+def phase_train_synth(torch, dev, tmp: str, card: str) -> dict:
+    """train_synth.train at its defaults (YOLOv8n, batch 16, 320, lr 2e-3)
+    for TRAIN_STEPS steps on the card: the loss finite and falling, the
+    checkpoint's structure byte-equal to the bundled one and loadable by
+    ObjectDetector, --resume continuing at the next step; ms a step with the
+    host's make_batch apart, peak memory."""
+    from rtvm_tpu_torch.detect.detector import ObjectDetector
+    from rtvm_tpu_torch.models.yolo import train_synth
+
+    t0 = time.time()
+    out = os.path.join(tmp, "train_synth")
+    torch.cuda.reset_peak_memory_stats()
+    state, model, steps, walls, counts = _train_run(torch, train_synth, "yolov8n_aerial", out,
+                                                    device=dev)
+    peak = torch.cuda.max_memory_allocated()
+    note = _train_checks("train_synth", "yolov8n_aerial", out, steps, DETECT_MODELS["yolov8n"][0])
+    path = os.path.join(out, "yolov8n_aerial.npz")
+    det = ObjectDetector("yolov8n", weights_path=path, load_world=False, device=dev)
+    check(det.weights_loaded and det.weights_source == path, "train_synth: ObjectDetector "
+          f"did not load {path}")
+    report = json.load(open(os.path.join(out, "yolov8n_aerial.json")))
+    resumed = _resume_check(torch, "train_synth", train_synth, "yolov8n_aerial", out, dev)
+    synth_ms = walls.walls["make_batch"] / TRAIN_STEPS
+    phase("train_synth", t0,
+          f"{TRAIN_STEPS} steps: {note}; a step {np.median(steps.ms[1:]):.2f} ms warm (median; "
+          f"first {steps.ms[0]:.1f} ms), make_batch {synth_ms:.1f} ms a batch on the host (apart); "
+          f"report at step {report['step']}: mAP50 {report['eval']['mAP50']}; the checkpoint's "
+          f"treedef equals the bundled one and ObjectDetector loads it; {resumed}; peak "
+          f"{peak / 2**20:.1f} MiB allocated; launches {counts}; on {card}")
+    check(counts == NO_LAUNCHES, f"train_synth: launch counts {counts}")
+    return counts
+
+
+def phase_eval_yolo(torch, dev, card: str) -> dict:
+    """train_synth.evaluate on weights/yolov8n_aerial.npz (48 held-out
+    scenes at 320, bf16): mAP50 within MAP_GAP of the bundled report; the
+    card's detections and logits on EVAL_CPU_SCENES scenes against the port's
+    float32 run on the CPU within DET_BOUNDS["bfloat16"]."""
+    from rtvm_tpu_torch.models.yolo import train_synth
+
+    t0 = time.time()
+    bundled = json.load(open(DETECT_MODELS["yolov8n"][0].replace(".npz", ".json")))["eval"]["mAP50"]
+    model = _bundled_yolo(torch, dev)
+    t = time.time()
+    report, counts = counted(lambda: train_synth.evaluate(model, n=EVAL_N, size=TRAIN_SIZE))
+    eval_s = time.time() - t
+    gap = abs(report["mAP50"] - bundled)
+    imgs = train_synth_eval_set(EVAL_CPU_SCENES)
+    rel_max, share_min, gap_max = DET_BOUNDS["bfloat16"]
+    cpu_model = _bundled_yolo(torch, "cpu")
+    card_dets = train_synth.predict_scenes(model, imgs)
+    cpu_dets = train_synth.predict_scenes(cpu_model, imgs, bf16=False)
+    share, n = _scene_share(card_dets, cpu_dets, gap_max)
+    x = train_synth._bgr_to_rgb01(torch.from_numpy(imgs))
+    with torch.inference_mode():
+        ref = torch.cat([v.flatten() for o in cpu_model.eval()(x) for v in o])
+        m16 = copy.deepcopy(model).eval().to(torch.bfloat16)
+        got = torch.cat([v.float().flatten().cpu() for o in m16(x.to(dev, torch.bfloat16)) for v in o])
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    phase("eval_yolo", t0,
+          f"{DETECT_MODELS['yolov8n'][0]} on {EVAL_N} held-out scenes at {TRAIN_SIZE} in bf16: "
+          f"mAP50 {report['mAP50']} (bundled report {bundled}, gap {gap:.4f}) in {eval_s:.2f} s; "
+          f"{report}; {EVAL_CPU_SCENES} scenes against the CPU's float32 run: logits max |d| "
+          f"{rel:.3e} of the largest, {n[0]} card and {n[1]} CPU detections, matched share "
+          f"{share:.3f} (IoU 0.9, score gap {gap_max}); launches {counts}; on {card}")
+    check(gap <= MAP_GAP, f"eval_yolo: mAP50 {report['mAP50']} vs {bundled}")
+    check(rel <= rel_max and share >= share_min, f"eval_yolo: beyond {DET_BOUNDS['bfloat16']}")
+    check(counts == NO_LAUNCHES, f"eval_yolo: launch counts {counts}")
+    return counts
+
+
+def phase_train_world(torch, dev, tmp: str, card: str) -> dict:
+    """train_world.train at its defaults for TRAIN_STEPS steps on the card
+    (the checks of train_synth, YoloWorldDetector loading the checkpoint),
+    then train_world.evaluate on weights/yolov8n_world.npz (float32, as JAX
+    runs it): mAP50 within MAP_GAP of the bundled report, and the card's
+    detections on EVAL_CPU_SCENES scenes against the CPU's within
+    DET_BOUNDS["float32"]."""
+    from rtvm_tpu_torch.models.yolo import train_world
+    from rtvm_tpu_torch.models.yolo.convert import flax_to_state_dict
+    from rtvm_tpu_torch.models.yolo.world import YoloWorldDetector, build_yolo_world
+    from rtvm_tpu_torch.utils.checkpoint import load_pytree_npz
+
+    t0 = time.time()
+    out = os.path.join(tmp, "train_world")
+    torch.cuda.reset_peak_memory_stats()
+    state, model, steps, walls, counts = _train_run(torch, train_world, "yolov8n_world", out,
+                                                    device=dev)
+    peak = torch.cuda.max_memory_allocated()
+    note = _train_checks("train_world", "yolov8n_world", out, steps, NAV_WORLD_NPZ)
+    path = os.path.join(out, "yolov8n_world.npz")
+    wd = YoloWorldDetector(weights_path=path, device=dev)
+    check(wd.is_open_vocab and wd.weights_source == path, f"train_world: {path} not loaded")
+    resumed = _resume_check(torch, "train_world", train_world, "yolov8n_world", out, dev)
+
+    bundled = json.load(open(NAV_WORLD_NPZ.replace(".npz", ".json")))["eval"]["mAP50"]
+    models = {}
+    for where in ("cpu", dev):
+        m = build_yolo_world("yolov8n", device="cpu")
+        m.load_state_dict(flax_to_state_dict(load_pytree_npz(NAV_WORLD_NPZ), "yolov8n"))
+        models[str(where)] = m.to(where)
+    t = time.time()
+    report, eval_counts = counted(lambda: train_world.evaluate(models[str(dev)], n=EVAL_N,
+                                                              imgsz=TRAIN_SIZE))
+    eval_s = time.time() - t
+    gap = abs(report["mAP50"] - bundled)
+    imgs = train_synth_eval_set(EVAL_CPU_SCENES)
+    rel_max, share_min, gap_max = DET_BOUNDS["float32"]
+    (cpu_logits, cpu_dets), (card_logits, card_dets) = (_world_scenes(torch, models[k], imgs)
+                                                        for k in ("cpu", str(dev)))
+    rel = float((card_logits - cpu_logits).abs().max() / cpu_logits.abs().max())
+    share, n = _scene_share(card_dets, cpu_dets, gap_max)
+    phase("train_world", t0,
+          f"{TRAIN_STEPS} steps: {note}; a step {np.median(steps.ms[1:]):.2f} ms warm (median; "
+          f"first {steps.ms[0]:.1f} ms), make_batch {walls.walls['make_batch'] / TRAIN_STEPS:.1f} "
+          f"ms a batch on the host (apart); treedef equals {NAV_WORLD_NPZ}'s and "
+          f"YoloWorldDetector loads it; {resumed}; peak {peak / 2**20:.1f} MiB allocated; "
+          f"{NAV_WORLD_NPZ} on {EVAL_N} held-out scenes (float32): mAP50 {report['mAP50']} "
+          f"(bundled report {bundled}, gap {gap:.4f}) in {eval_s:.2f} s; {report}; "
+          f"{EVAL_CPU_SCENES} scenes against the CPU's float32 run: logits max |d| {rel:.3e} of "
+          f"the largest, {n[0]} card and {n[1]} CPU detections, matched share {share:.3f} (IoU "
+          f"0.9, score gap {gap_max}); launches {counts} and {eval_counts}; on {card}")
+    check(gap <= MAP_GAP, f"train_world: mAP50 {report['mAP50']} vs {bundled}")
+    check(rel <= rel_max and share >= share_min, f"train_world: beyond {DET_BOUNDS['float32']}")
+    check(counts == NO_LAUNCHES and eval_counts == NO_LAUNCHES,
+          f"train_world: launch counts {counts} {eval_counts}")
+    return {k: counts[k] + eval_counts[k] for k in counts}
+
+
+def phase_train_depth(torch, dev, tmp: str, card: str) -> dict:
+    """train_depth.main on the card: --steps 1 --lr 0 --init
+    weights/depthnet.npz reproduces weights/depthnet.json (abs_rel and
+    pearson within DEPTH_REPORT_TOL; at lr 0 nothing moves); then
+    TRAIN_STEPS steps at the defaults (240x320, batch 8) from the port's
+    seeded init: ms a step (the loader's spawned pool apart), the loss
+    finite, peak memory."""
+    from rtvm_tpu_torch.models import train_depth
+
+    t0 = time.time()
+    want = json.load(open("weights/depthnet.json"))
+    out = os.path.join(tmp, "train_depth_lr0")
+    _, counts = counted(lambda: train_depth.main(
+        DEPTH_ARGS + ["--steps", "1", "--lr", "0", "--init", "weights/depthnet.npz",
+                      "--out-dir", out],
+        device=dev))
+    got = json.load(open(os.path.join(out, "depthnet.json")))
+    gaps = {k: abs(got[k] - want[k]) for k in ("abs_rel", "pearson")}
+    with np.load(os.path.join(out, "depthnet.npz")) as a, np.load("weights/depthnet.npz") as b:
+        unmoved = all(np.array_equal(a[k], b[k]) for k in b.files)
+
+    out2 = os.path.join(tmp, "train_depth")
+    real_step, ms, losses = train_depth.train_step, [], []
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        loss = real_step(*a, **k)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t) * 1e3)
+        return loss
+
+    train_depth.train_step = timed
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    try:
+        _, counts2 = counted(lambda: train_depth.main(
+            DEPTH_ARGS + ["--steps", str(TRAIN_STEPS), "--out-dir", out2], device=dev))
+    finally:
+        train_depth.train_step = real_step
+    wall = time.time() - t
+    peak = torch.cuda.max_memory_allocated()
+    report = json.load(open(os.path.join(out2, "depthnet.json")))
+    phase("train_depth", t0,
+          f"--steps 1 --lr 0 --init weights/depthnet.npz: abs_rel {got['abs_rel']:.6f} pearson "
+          f"{got['pearson']:.6f} (weights/depthnet.json {want['abs_rel']:.6f} "
+          f"{want['pearson']:.6f}, gaps {gaps['abs_rel']:.2e} {gaps['pearson']:.2e}), parameters "
+          f"{'unmoved' if unmoved else 'MOVED'}; {TRAIN_STEPS} steps at 240x320 batch 8: a step "
+          f"{np.median(ms[1:]):.2f} ms warm (median; first {ms[0]:.1f} ms), loss {losses[0]:.4f} "
+          f"-> {losses[-1]:.4f}, main's wall {wall:.2f} s (spawned pool, report), report "
+          f"abs_rel {report['abs_rel']:.4f} pearson {report['pearson']:.4f}; peak "
+          f"{peak / 2**20:.1f} MiB allocated; launches {counts} and {counts2}; on {card}")
+    check(max(gaps.values()) <= DEPTH_REPORT_TOL, f"train_depth: report gaps {gaps}")
+    check(unmoved, "train_depth: --lr 0 moved the parameters")
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(v) for v in losses),
+          f"train_depth: losses {losses}")
+    check(counts == NO_LAUNCHES and counts2 == NO_LAUNCHES,
+          f"train_depth: launch counts {counts} {counts2}")
+    return counts2
+
+
 def _timed_build(build):
     t = time.time()
     return build(), time.time() - t
@@ -2652,6 +3114,11 @@ def main() -> int:
             by_path["stereo_480p"] = phase_stereo_480p(torch, dev, card)
             by_path["menu"] = phase_menu(torch, dev, tmp, card, mesh_img)
             by_path["web"] = phase_web(torch, dev, tmp, card)
+            by_path["train_step"] = phase_train_step(torch, dev, card)
+            by_path["train_synth"] = phase_train_synth(torch, dev, tmp, card)
+            by_path["eval_yolo"] = phase_eval_yolo(torch, dev, card)
+            by_path["train_world"] = phase_train_world(torch, dev, tmp, card)
+            by_path["train_depth"] = phase_train_depth(torch, dev, tmp, card)
         row_a["at_1080p"] = row_a_1080p
         for row, key in ((row_a, "warp"), (row_b, "patches")):
             row["launches_by_path"] = {p: c[key] for p, c in by_path.items()}

@@ -8,7 +8,9 @@ with either detector, SIFT or ORB, the per-frame YOLO detection that
 open-vocabulary ``models.yolo.world``, CLAHE, tiles, ``detect.classical``) and
 the navigation map (``navigate``), the image-directory route
 (``pipelines.images_pipeline`` with the JPEG/PNG reader ``io.imread``), and
-visual odometry, SLAM and the terrain analysis (``slam``). The two kernels the JAX package wrote in
+visual odometry, SLAM and the terrain analysis (``slam``), and the trainers
+(``models.yolo.train_synth``, ``models.yolo.train_world``,
+``models.train_depth``) with checkpoints in the JAX package's format. The two kernels the JAX package wrote in
 Pallas for the TPU are hand-written CUDA here (``csrc/warp.cu``,
 ``csrc/patches.cu``), built with ``nvcc`` at first use and loaded with ctypes
 (``kernels.py``). The host algorithms the JAX package borrows from cv2 and its

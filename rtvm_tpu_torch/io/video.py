@@ -130,3 +130,27 @@ def read_video_windows(source, window: int = 16, max_frames: Optional[int] = Non
     """Returns (first_frame, iterator over (window, n_valid))."""
     r = VideoReader(source, window=window, max_frames=max_frames)
     return r.first_frame, r.windows()
+
+
+class SeekableVideo:
+    """Random access to a video file's frames, decoded with cv2 (imported
+    here only; without cv2 the constructor raises ImportError, as on the
+    card). ``frame_count`` is the container's count (0 when unknown)."""
+
+    def __init__(self, path: str):
+        try:
+            import cv2
+        except ImportError as e:
+            raise ImportError(NO_DECODER) from e
+        self._cv2 = cv2
+        self._cap = cv2.VideoCapture(os.fspath(path))
+        self.frame_count = int(self._cap.get(cv2.CAP_PROP_FRAME_COUNT))
+
+    def read(self, index: int) -> Optional[np.ndarray]:
+        """Frame `index` as [H, W, 3] uint8 BGR, or None when it cannot be read."""
+        self._cap.set(self._cv2.CAP_PROP_POS_FRAMES, index)
+        ok, frame = self._cap.read()
+        return frame if ok else None
+
+    def close(self) -> None:
+        self._cap.release()

@@ -121,6 +121,23 @@ def flax_to_state_dict(tree: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor
     return sd
 
 
+def state_dict_to_flax(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of ``flax_to_state_dict``: {leaf path under ``params/``:
+    float32 array} of DepthNet's state_dict, or of tensors shaped as its
+    parameters (AdamW's moments). A 4-D ``weight`` becomes the HWIO conv
+    ``kernel``, a 2-D one the ``(in, out)`` dense ``kernel``, a 1-D one
+    GroupNorm's ``scale``."""
+    out = {}
+    for key, t in tensors.items():
+        parts = key.split(".")
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if parts[-1] == "weight":
+            parts[-1] = "scale" if a.ndim == 1 else "kernel"
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        out["/".join(["params"] + parts)] = np.array(a, order="C")
+    return out
+
+
 def build_depthnet(checkpoint: str | None = None, device=None, seed: int = 0) -> DepthNet:
     """DepthNet in eval mode on `device` (``resolve_device``: the card unless
     the caller asks for the CPU), from a checkpoint written by the JAX

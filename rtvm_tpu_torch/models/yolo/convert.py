@@ -86,3 +86,41 @@ def flax_to_state_dict(tree: Mapping, variant: str) -> Dict[str, torch.Tensor]:
     if bad:
         raise ValueError(f"{variant}: shapes differ at {bad[:5]}")
     return sd
+
+
+def flax_path(key: str, buffer_names: frozenset = frozenset({"mean", "var"})) -> str:
+    """The Flax leaf path of a state_dict key (the inverse of
+    ``state_dict_key``): BatchNorm's ``mean`` and ``var`` are
+    ``batch_stats``, everything else ``params``, and ``weight`` is ``kernel``."""
+    parts = key.split(".")
+    collection = "batch_stats" if parts[-1] in buffer_names else "params"
+    if parts[-1] == "weight":
+        parts[-1] = "kernel"
+    return "/".join([collection] + parts)
+
+
+def torch_to_flax_arrays(tensors: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """{Flax leaf path: float32 array} of {state_dict key: tensor}: a
+    convolution's OIHW ``weight`` becomes the HWIO ``kernel`` (a depthwise
+    ``(C, 1, kh, kw)`` becomes ``(kh, kw, 1, C)``), an ``nn.Linear``'s
+    ``(out, in)`` the ``(in, out)`` ``kernel``. Also maps tensors shaped
+    as the parameters, such as AdamW's moments."""
+    out = {}
+    for key, t in tensors.items():
+        a = t.detach().to("cpu", torch.float32).numpy()
+        if key.endswith(".weight"):
+            a = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a.T
+        out[flax_path(key)] = np.array(a, order="C")  # keeps 0-dim leaves 0-dim
+    return out
+
+
+def torch_to_flax(model: torch.nn.Module) -> dict:
+    """The Flax variables ``{'params': ..., 'batch_stats': ...}`` (nested
+    dicts of float32 numpy arrays) of any of the port's YOLO modules: the
+    inverse of ``flax_to_torch``, so that ``save_pytree_npz`` of it is a
+    checkpoint the JAX package loads."""
+    from rtvm_tpu_torch.utils.checkpoint import flat_to_nested
+
+    tree = flat_to_nested(torch_to_flax_arrays(model.state_dict()))
+    tree.setdefault("batch_stats", {})
+    return tree

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3  # Flax's BatchNorm epsilon here, not PyTorch's 1e-5
+BN_MOMENTUM = 0.97  # the running statistics' weight on their old value, Flax's convention
 
 
 class FlaxScope(nn.Module):
@@ -49,7 +50,13 @@ class FlaxScope(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Flax's ``nn.BatchNorm`` with running statistics (inference)."""
+    """Flax's ``nn.BatchNorm(momentum=0.97, epsilon=1e-3)``: running
+    statistics in eval mode; in training mode (``self.training``) the batch's
+    statistics over N, H and W, Flax's way, which ``F.batch_norm`` is not:
+    the variance is the fast form max(0, E[x^2] - E[x]^2), and the running
+    variance takes that biased variance, each running value kept at
+    momentum 0.97 (``F.batch_norm``'s momentum weighs the new value and its
+    running variance is the unbiased one)."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -59,7 +66,17 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(ch))
 
     def forward(self, x):
-        return F.batch_norm(x, self.mean, self.var, self.scale, self.bias, False, 0.0, BN_EPS)
+        if not self.training:
+            return F.batch_norm(x, self.mean, self.var, self.scale, self.bias, False, 0.0, BN_EPS)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
+            self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)
+        mul = torch.rsqrt(var + BN_EPS) * self.scale
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        return y.to(x.dtype)
 
 
 class ConvBnSiLU(nn.Module):
