@@ -107,6 +107,19 @@ Phases, each printed with its result and seconds on its own line:
      `train_world`); train_depth.main with --steps 1 --lr 0 against
      weights/depthnet.json, then 20 steps at its defaults (phase
      `train_depth`);
+ 18. slice 11, parallel/mesh.py and the .pt route: kernel A with a row
+     origin bitwise equal to the full warp's rows, then dryrun_multichip(4)
+     with its 4 ranks on the one card under gloo (phase `mesh`: the tiny
+     ORB window, the dp YOLO training step, dp detection, the 360x640 ORB
+     window onto the 720x768 canvas; then two SIFT windows on the (2, 2)
+     mesh and two ORB windows on (1, 4), bitwise; each against the same
+     step in one process on the card; kernel A's launches summed over the
+     ranks one a rank a window, kernel B's one a rank a SIFT window; step
+     and collective times, spawn and init, peak memory per rank; a batch
+     of 4 frames against 8 in one process); the two ORB windows in one
+     rank on NCCL (phase `mesh_nccl`, bitwise the one-process step); weights/yolov8n_aerial.npz through an ultralytics-layout .pt
+     and back, and ObjectDetector("yolo11s") from a seeded .pt on the card
+     against the CPU (phase `weights_pt`);
 then one JSON line of per-kernel numbers, the elapsed time, and as the last
 line {"ok": true, "device": {...}}. Any failed check exits non-zero. Without
 a CUDA device it prints no result and exits non-zero.
@@ -3025,6 +3038,476 @@ def phase_train_depth(torch, dev, tmp: str, card: str) -> dict:
     return counts2
 
 
+# ------------------------------------------------- slice 11: mesh and .pt
+
+MESH_RANKS = 4  # a (2, 2) mesh, every rank on the one card (gloo)
+MESH_WINDOWS = 2  # of the 360x640 cases the phase adds: the second is timed warm
+# The sharded steps against the same steps in one process on the card.
+# On the (2, 2) mesh: the accepted flags equal; H_abs within MESH_H_REL of
+# its largest entry: each dp rank extracts and fits 4 of the 8 frames, and
+# the card rounds a batch of 4 otherwise than one of 8 (the phase's line
+# shows it in one process: the features of frames 0-3 and 4-7 against the
+# same frames in a batch of 8, and match + RANSAC of pairs 0-3 and 4-7
+# against the same pairs in a batch of 8; on the CPU both are bitwise,
+# tests/test_torch_mesh.py). A sample point that moves by such an amount
+# can cross a frame's edge and flip a pixel of the ring in or out, and its
+# weights spread that over MESH_EDGE_BAND px (hole distance 34, blur 15):
+# the canvas is held to test_multichip.py's bounds for JAX's sharded step,
+# the mean over the canvas and the largest off those bands.
+MESH_H_REL = 1e-6
+MESH_CANVAS_MEAN, MESH_CANVAS_MAX = 0.5, 2.0
+MESH_EDGE_BAND = 50
+# On the (1, 4) mesh every rank extracts and fits the whole window, as one
+# process does, and only the paint is sharded: the state bitwise the
+# one-process step's, and the whole canvas, frame edges included, within
+# MESH_TP_CANVAS_TOL grey levels. Not bitwise: the blend weights' blur is a
+# product with a banded matrix (ops/filters.py:conv1d_edge), which cuBLAS
+# sums in another order for a band's rows than for the whole canvas's (the
+# phase's line shows it on blend_weights_smoothed alone; on the CPU both
+# are bitwise, tests/test_torch_mesh.py). On an H100, 700 W: the canvas
+# 3.81e-4 largest over 16 frames; a fault in a band or its halo moves
+# weights by 1e-2 or more.
+MESH_TP_FIELDS = ("ok", "blended", "H_abs", "num_inliers", "num_matches", "two_pass", "H_old",
+                  "hbuf", "kp", "desc", "kp_valid", "union_coarse")
+MESH_TP_CANVAS_TOL = 1e-3
+# Training (tests/test_torch_mesh.py's bounds): the loss relative, BatchNorm's
+# statistics, each weight within two Adam steps of lr (a gradient within
+# rounding of 0 may take either sign), the share of values more than 1e-5
+# apart.
+MESH_LOSS_RTOL, MESH_STATS_TOL, MESH_PARAM_MAX, MESH_PARAM_SHARE = 1e-6, 1e-6, 2e-3 + 1e-6, 1e-3
+# The seeded yolo11s's float32 logits on the card against the CPU, over the
+# largest: its BatchNorm statistics are calibrated on 4 frames, and some
+# channels' small variances scale the rounding up (on an H100, 700 W:
+# 4.93e-5; the bundled checkpoints' 1.1e-6 is DET_BOUNDS's).
+PT_LOGIT_TOL = 1e-4
+BAND_CASES = ((0, 720), (8, 360), (311, 409), (668, 52), (717, 3), (1, 7))  # (row0, rows)
+
+
+def _mesh_band_checks(name: str, ranks: list, hc: int, tp: int) -> None:
+    """Each rank holds one band of the canvas and warps it with its halo."""
+    for r in ranks:
+        a, b = r["band"]
+        (_, _), (lo, hi) = r["rows"]
+        check(r["mesh"][1] == tp and r["canvas_band"][1] == b - a < hc and a - lo <= 48
+              and hi - b <= 50,
+              f"{name}: rank {r['rank']} of mesh {r['mesh']} holds {r['canvas_band']}, warps "
+              f"rows [{lo}, {hi})")
+
+
+def _mesh_times(ranks: list) -> str:
+    return (f"step ms/rank (the last window) {[round(r['step_ms'][-1], 2) for r in ranks]}, "
+            f"collectives ms/rank {[round(r['comm_ms'][-1], 2) for r in ranks]}, peak MiB/rank "
+            f"{[_mib(r['peak_mib']) for r in ranks]}")
+
+
+def _mesh_window_checks(name: str, ranks: list, want: dict, min_ok: int) -> str:
+    got = ranks[0]
+    check(np.array_equal(got["ok"], want["ok"]) and np.array_equal(got["blended"], want["blended"]),
+          f"{name}: accepted frames {got['ok'].astype(int).tolist()} against one process's "
+          f"{want['ok'].astype(int).tolist()}")
+    h_err = float(np.abs(got["H_abs"] - want["H_abs"]).max())
+    d = np.abs(got["canvas"] - want["canvas"])
+    away = _off_frame_edges(want["H_abs"].reshape(-1, 3, 3), FRAME_H, FRAME_W, *d.shape[1:])
+    c_mean, c_err, c_off = float(d.mean()), float(d.max()), float(d[:, away].max())
+    check(h_err <= MESH_H_REL * max(1.0, float(np.abs(want["H_abs"]).max())),
+          f"{name}: H_abs {h_err} off the one-process step")
+    check(c_mean <= MESH_CANVAS_MEAN and c_off <= MESH_CANVAS_MAX,
+          f"{name}: canvas {c_mean} mean, {c_off} largest off the frame edges ({c_err} on "
+          f"them) grey levels off the one-process step")
+    check(np.isfinite(got["canvas"]).all() and got["ok"].sum() >= min_ok,
+          f"{name}: {int(got['ok'].sum())} frames accepted, fewer than {min_ok}")
+    _mesh_band_checks(name, ranks, got["canvas"].shape[1], 2)
+    return (f"{name}: ok {int(got['ok'].sum())}/{got['ok'].size}, H_abs {h_err:.3g}, canvas "
+            f"{c_mean:.3g} mean, {c_off:.3g} largest off the frame edges ({away.mean():.3f} of "
+            f"it; {c_err:.3g} on them), equal on {float((d == 0).mean()):.6f}, "
+            + _mesh_times(ranks))
+
+
+def _mesh_tp_checks(name: str, ranks: list, want: dict) -> str:
+    got = ranks[0]
+    d = np.abs(got["canvas"] - want["canvas"])
+    check(all(np.array_equal(got[k], want[k]) for k in MESH_TP_FIELDS),
+          f"{name}: not bitwise the one-process step in "
+          f"{[k for k in MESH_TP_FIELDS if not np.array_equal(got[k], want[k])]}")
+    check(float(d.max()) <= MESH_TP_CANVAS_TOL,
+          f"{name}: canvas {float(d.max())} largest, {float(d.mean())} mean grey levels off the "
+          f"one-process step, equal on {float((d == 0).mean())}")
+    check(got["ok"].sum() >= 14, f"{name}: {int(got['ok'].sum())} frames accepted")
+    _mesh_band_checks(name, ranks, got["canvas"].shape[1], MESH_RANKS)
+    return (f"{name}: mesh (1, {MESH_RANKS}), bands {[r['band'] for r in ranks]}, ok "
+            f"{int(got['ok'].sum())}/{got['ok'].size}, state bitwise, canvas "
+            f"{float(d.max()):.3g} largest, {float(d.mean()):.3g} mean grey levels off (frame "
+            f"edges included), equal on {float((d == 0).mean()):.6f}, " + _mesh_times(ranks))
+
+
+def _blur_witness(torch, dev, hc: int, wc: int, tp: int) -> str:
+    """blend_weights_smoothed on each tp band's rows [l, h) alone against the
+    same rows of the whole canvas's, on random weights [8, hc, wc] on the
+    card: the largest |d| of alpha and beta over the bands' own rows."""
+    from rtvm_tpu_torch.ops import warp as warp_ops
+    from rtvm_tpu_torch.parallel import mesh as PM
+
+    g = torch.Generator().manual_seed(SEED)
+    w_new, w_old = (torch.rand((8, hc, wc), generator=g).mul(40.0).to(dev) for _ in range(2))
+    full = warp_ops.blend_weights_smoothed(w_new, w_old)
+    gap = 0.0
+    for a, b in PM.canvas_bands(hc, tp):
+        (l, h), _ = PM.paint_rows((a, b), hc)
+        part = warp_ops.blend_weights_smoothed(w_new[:, l:h], w_old[:, l:h])
+        gap = max([gap] + [float((p[:, a - l : b - l] - f[:, a:b]).abs().max())
+                           for p, f in zip(part, full)])
+    return f"blend weights of {tp} bands alone against the whole canvas's: {gap:.3g}"
+
+
+def _batch_witness(torch, case: dict, dev) -> str:
+    """The (2, 2) mesh's dp split in one process on the card: the features of
+    frames 0-3 and 4-7 of the case's first window against the same frames in
+    a batch of 8, and match + RANSAC of pairs 0-3 and 4-7 against the same
+    pairs in a batch of 8 (on the batch of 8's features)."""
+    from rtvm_tpu_torch.mosaic import stitcher as S
+    from rtvm_tpu_torch.ops import color
+    from rtvm_tpu_torch.parallel import mesh as PM
+
+    m, windows = PM._window_setup(case, dev)
+    cfg, st, fr = m.config, m.state, windows[0]
+    f8 = S._extract_features(color.bgr2gray(fr), cfg)
+    f4 = [S._extract_features(color.bgr2gray(fr[i : i + 4]), cfg) for i in (0, 4)]
+    f4 = [torch.cat([h[j] for h in f4]) for j in range(3)]
+    feats_equal = all(torch.equal(x, y) for x, y in zip(f4, f8))
+    kp_gap = float((f4[0] - f8[0]).abs().max())
+    u = S.pair_uniforms(m.seed, int(st.frame_idx), 8, cfg, dev)
+    r8, _ = S.match_and_fit(*f8, st.kp, st.desc, st.kp_valid, u, cfg)
+    ra, _ = S.match_and_fit(*(x[:4] for x in f8), st.kp, st.desc, st.kp_valid, u[:4], cfg)
+    rb, _ = S.match_and_fit(*(x[4:] for x in f8), *(x[3] for x in f8), u[4:], cfg)
+    h4 = torch.cat([ra.H, rb.H])
+    return (f"{case['detector']} in one process, 4 against 8: features bitwise {feats_equal} "
+            f"(keypoints {kp_gap:.3g} px), H_rel {float((h4 - r8.H).abs().max()):.3g} (bitwise "
+            f"{torch.equal(h4, r8.H)}), ok equal "
+            f"{torch.equal(torch.cat([ra.ok, rb.ok]), r8.ok)}")
+
+
+def _off_frame_edges(H_abs: np.ndarray, hf: int, wf: int, hc: int, wc: int) -> np.ndarray:
+    """bool [hc, wc]: canvas pixels farther than MESH_EDGE_BAND from every
+    edge of every frame's warped rectangle."""
+    ys, xs = np.mgrid[0:hc, 0:wc]
+    keep = np.ones((hc, wc), bool)
+    band = MESH_EDGE_BAND
+    for H in np.asarray(H_abs, np.float64):
+        c = H @ np.array([[0, wf - 1, wf - 1, 0], [0, 0, hf - 1, hf - 1], [1, 1, 1, 1]], np.float64)
+        x0, x1 = (c[0] / c[2]).min(), (c[0] / c[2]).max()
+        y0, y1 = (c[1] / c[2]).min(), (c[1] / c[2]).max()
+        in_x = (xs > x0 - band) & (xs < x1 + band)
+        in_y = (ys > y0 - band) & (ys < y1 + band)
+        near = ((np.abs(xs - x0) <= band) | (np.abs(xs - x1) <= band)) & in_y
+        near |= ((np.abs(ys - y0) <= band) | (np.abs(ys - y1) <= band)) & in_x
+        keep &= ~near
+    return keep
+
+
+def _mib(x) -> str:
+    return "not measured" if x is None else f"{x:.1f}"
+
+
+def _sum_launches(ranks: list) -> dict:
+    out = dict(NO_LAUNCHES)
+    for r in ranks:
+        for k, v in r["launches"].items():
+            out[k] += v
+    return out
+
+
+def _train_gap(want: dict, got: dict) -> tuple:
+    """(largest |d| of BatchNorm's statistics, of the other tensors, and the
+    share of the others' values more than 1e-5 apart)."""
+    stats = weights = 0.0
+    off = total = 0
+    for k, v in want.items():
+        d = np.abs(got[k] - v)
+        if k.endswith((".mean", ".var")):
+            stats = max(stats, float(d.max()))
+        else:
+            weights = max(weights, float(d.max()))
+            off, total = off + int((d > 1e-5).sum()), total + d.size
+    return stats, weights, off / total
+
+
+def phase_mesh(torch, dev, card: str) -> tuple:
+    """parallel/mesh.py on the card: kernel A with a row origin against the
+    full warp; then dryrun_multichip(4), every rank on the one card under
+    gloo (the tiny ORB window, the dp YOLO step, dp detection, the 360x640
+    ORB window), and in a second spawn two 360x640 SIFT windows on the
+    (2, 2) mesh and two ORB windows on (1, 4), each held against the same
+    step in one process on the card. Returns (the launches of the sharded
+    windows summed over the ranks, the one-process run of the two ORB
+    windows)."""
+    from rtvm_tpu_torch import kernels
+    from rtvm_tpu_torch.models.yolo.postprocess import Detections, match_detections
+    from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch, warp_plain
+    from rtvm_tpu_torch.parallel import mesh as PM
+
+    t0 = time.time()
+    case = PM.production_case("orb")
+    fr = torch.as_tensor(case["windows"][0]).to(dev).float().permute(0, 3, 1, 2).contiguous()
+    H = torch.tensor([[[1.0, 0.01 * i, 64.0 - 2 * i], [-0.01 * i, 1.0, 300.0 - 2 * i],
+                       [2e-5 * i, -1e-5 * i, 1.0]] for i in range(fr.shape[0])], device=dev)
+    G = inverse_maps(H)
+    full = warp_batch(fr, G, 720, 768)
+    for row0, rows in BAND_CASES:
+        band = warp_batch(fr, G, rows, 768, row0=row0)
+        check(torch.equal(band, full[:, :, row0 : row0 + rows]),
+              f"mesh: kernel A at row0={row0} differs from the full warp's rows")
+        check(torch.equal(band, warp_plain(fr, G, rows, 768, row0)),
+              f"mesh: kernel A at row0={row0} differs from warp_plain")
+
+    out = PM.dryrun_multichip(MESH_RANKS, device=dev)
+    check(out["backend"] == "gloo", f"mesh: backend {out['backend']} for 4 ranks on one card")
+    more = {"production_sift": PM.production_case("sift", MESH_WINDOWS),
+            "production_tp4": dict(PM.production_case("orb", MESH_WINDOWS), tp=MESH_RANKS)}
+    res = PM.run_ranks(MESH_RANKS, [(PM.window_job, c) for c in more.values()], device=dev)
+    ranks_of = dict(zip(more, res["jobs"]), window=out["window"], production=out["production"])
+    cases = dict(out["cases"], **more)
+    notes, counts = [], dict(NO_LAUNCHES)
+    singles = {}
+    for name in ("window", "production", "production_sift", "production_tp4"):
+        ranks = ranks_of[name]
+        kernels.reset_launches()
+        singles[name] = PM.single_window_run(cases[name], device=dev)
+        if name == "production_tp4":
+            notes.append(_mesh_tp_checks(name, ranks, singles[name]))
+        else:  # the tiny window's frames are noise (JAX's dry run): nothing to accept
+            notes.append(_mesh_window_checks(name, ranks, singles[name],
+                                             0 if name == "window" else 7))
+        got = _sum_launches(ranks)
+        n = MESH_RANKS * len(ranks[0]["step_ms"])  # one a rank a window
+        want = {"warp": n, "patches": n if name.endswith("sift") else 0}
+        check(got == want, f"mesh: {name}'s launches over the ranks {got}, expected {want}")
+        for k in counts:
+            counts[k] += got[k]
+    notes += ["witness: " + _batch_witness(torch, cases[k], dev)
+              for k in ("production", "production_sift")]
+    notes.append("witness: " + _blur_witness(torch, dev, 720, 768, MESH_RANKS))
+
+    tr = PM.single_train_run(out["cases"]["train"], device=dev)
+    got = out["train"][0]
+    loss_rel = abs(got["loss"] - tr["loss"]) / abs(tr["loss"])
+    stats, weights, share = _train_gap(tr["state_dict"], got["state_dict"])
+    check(loss_rel <= MESH_LOSS_RTOL and stats <= MESH_STATS_TOL and weights <= MESH_PARAM_MAX
+          and share <= MESH_PARAM_SHARE,
+          f"mesh: dp training step off the one-process step: loss {loss_rel:.3g} relative, "
+          f"statistics {stats:.3g}, weights {weights:.3g}, share {share:.3g}")
+    notes.append(f"train: loss {got['loss']:.6f} ({loss_rel:.3g} rel), statistics {stats:.3g}, "
+                 f"weights {weights:.3g} (share {share:.3g} > 1e-5), first and warm step ms/rank "
+                 f"{[(round(r['ms'], 2), round(r['warm_ms'], 2)) for r in out['train']]}, "
+                 f"warm collectives ms/rank {[round(r['warm_comm_ms'], 2) for r in out['train']]}, "
+                 f"peak MiB/rank "
+                 f"{[_mib(r['peak_mib']) for r in out['train']]}")
+
+    dr = PM.single_detection_run(out["cases"]["detect"], device=dev)
+    got = out["detect"][0]
+    m = match_detections(Detections(*(torch.as_tensor(dr[k]) for k in Detections._fields)),
+                         Detections(*(torch.as_tensor(got[k]) for k in Detections._fields)))
+    _, share_min, gap_max = DET_BOUNDS["float32"]
+    check(m["n_ref"] == 0 or (m["share"] >= share_min and m["max_score_gap"] <= gap_max),
+          f"mesh: dp detection against one process: {m}")
+    notes.append(f"detect: {m['n_ref']} detections, matched {m['share']:.4f}, score gap "
+                 f"{m['max_score_gap']:.3g}, ms/rank {[round(r['ms'], 2) for r in out['detect']]}")
+    phase("mesh", t0, f"kernel A at {len(BAND_CASES)} row origins bitwise the full warp's rows; "
+          f"4 ranks ({out['backend']}), spawn to results {out['spawn_s']:.2f} s and "
+          f"{res['spawn_s']:.2f} s, init s/rank {[round(x, 3) for x in out['init_s']]} and "
+          f"{[round(x, 3) for x in res['init_s']]}; " + "; ".join(notes)
+          + f"; launches over the ranks {counts}; on {card}")
+    return counts, singles["production_tp4"]
+
+
+def phase_mesh_nccl(torch, dev, card: str, want: dict) -> dict:
+    """The two 360x640 ORB windows through the sharded step in one rank,
+    whose backend is NCCL (one rank, one card): equal to `want`, the
+    one-process step's result (mesh.single_window_run)."""
+    from rtvm_tpu_torch.parallel import mesh as PM
+
+    t0 = time.time()
+    res = PM.run_ranks(1, [(PM.window_job, PM.production_case("orb", MESH_WINDOWS))], device=dev)
+    check(res["backend"] == "nccl", f"mesh_nccl: backend {res['backend']}")
+    got = res["jobs"][0][0]
+    for k in ("ok", "H_abs", "canvas", "union_coarse", "kp", "desc", "H_old"):
+        check(np.array_equal(got[k], want[k]), f"mesh_nccl: {k} differs from the one-process step")
+    counts = _sum_launches([got])
+    check(counts == {"warp": MESH_WINDOWS, "patches": 0}, f"mesh_nccl: launches {counts}")
+    phase("mesh_nccl", t0, f"1 rank on NCCL, mesh {got['mesh']}: ok {int(got['ok'].sum())}/"
+          f"{got['ok'].size}, H_abs and canvas bitwise the one-process step's; step ms (each "
+          f"window) {[round(x, 2) for x in got['step_ms']]}, "
+          f"collectives {got['comm_ms'][-1]:.2f} ms (host, the last window), "
+          f"spawn to results {res['spawn_s']:.2f} s, "
+          f"peak {_mib(got['peak_mib'])} MiB; launches {counts}; on {card}")
+    return counts
+
+
+def _conv_keys(p: str) -> list:
+    return [f"{p}.conv.weight", f"{p}.bn.weight", f"{p}.bn.bias", f"{p}.bn.running_mean",
+            f"{p}.bn.running_var", f"{p}.bn.num_batches_tracked"]
+
+
+def ultralytics_keys(variant: str) -> list:
+    """The state-dict keys of an ultralytics DetectionModel: yolov8n, or a
+    YOLO11 scale of depth 0.50 (n, s: one block per C3k2, a nested C3k at
+    layers 6, 8 and 22)."""
+    def pair(p):
+        return _conv_keys(f"{p}.cv1") + _conv_keys(f"{p}.cv2")
+
+    if variant == "yolov8n":
+        convs, head = (0, 1, 3, 5, 7, 16, 19), 22
+        ks = sum((_conv_keys(f"model.{i}") for i in convs), [])
+        for i, n in {2: 1, 4: 2, 6: 2, 8: 1, 12: 1, 15: 1, 18: 1, 21: 1}.items():  # C2f
+            ks += pair(f"model.{i}") + sum((pair(f"model.{i}.m.{j}") for j in range(n)), [])
+        for br in ("cv2", "cv3"):
+            for s in range(3):
+                ks += _conv_keys(f"model.22.{br}.{s}.0") + _conv_keys(f"model.22.{br}.{s}.1")
+    else:
+        convs, head = (0, 1, 3, 5, 7, 17, 20), 23
+        ks = sum((_conv_keys(f"model.{i}") for i in convs), [])
+        for i in (2, 4, 6, 8, 13, 16, 19, 22):  # C3k2
+            ks += pair(f"model.{i}")
+            if i in (6, 8, 22):
+                ks += pair(f"model.{i}.m.0") + _conv_keys(f"model.{i}.m.0.cv3")
+                ks += pair(f"model.{i}.m.0.m.0") + pair(f"model.{i}.m.0.m.1")
+            else:
+                ks += pair(f"model.{i}.m.0")
+        ks += pair("model.10")  # C2PSA
+        ks += sum((_conv_keys(f"model.10.m.0.attn.{a}") for a in ("qkv", "proj", "pe")), [])
+        ks += _conv_keys("model.10.m.0.ffn.0") + _conv_keys("model.10.m.0.ffn.1")
+        for s in range(3):
+            ks += _conv_keys(f"model.23.cv2.{s}.0") + _conv_keys(f"model.23.cv2.{s}.1")
+            for a in range(2):
+                ks += _conv_keys(f"model.23.cv3.{s}.{a}.0") + _conv_keys(f"model.23.cv3.{s}.{a}.1")
+    ks += pair("model.9")  # SPPF
+    for br in ("cv2", "cv3"):
+        ks += sum(([f"model.{head}.{br}.{s}.2.weight", f"model.{head}.{br}.{s}.2.bias"]
+                   for s in range(3)), [])
+    return ks + [f"model.{head}.dfl.conv.weight"]
+
+
+def write_ultralytics_pt(torch, path: str, values: dict, variant: str, half: bool) -> None:
+    """torch.save of nested plain nn.Modules whose state_dict has
+    ultralytics' keys for `variant`, holding `values` (the port's
+    state_dict), in half precision as ultralytics saves where `half`."""
+    from torch import nn
+
+    from rtvm_tpu_torch.models.yolo.convert import state_dict_key
+    from rtvm_tpu_torch.models.yolo.weights import ult_key_to_flax
+
+    root = nn.Module()
+    for key in ultralytics_keys(variant):
+        m = ult_key_to_flax(key, variant)
+        if key.endswith("num_batches_tracked"):
+            t = torch.zeros((), dtype=torch.int64)
+        elif m is None:  # the fixed DFL convolution
+            t = torch.arange(16, dtype=torch.float32).reshape(1, 16, 1, 1)
+        else:
+            t = values[state_dict_key("/".join((m[0],) + m[1]))[0]].detach().cpu().clone()
+        t = t.half() if half and t.is_floating_point() else t
+        node = root
+        for p in key.split(".")[:-1]:
+            if p not in node._modules:
+                node.add_module(p, nn.Module())
+            node = node._modules[p]
+        name = key.split(".")[-1]
+        if name.startswith(("running_", "num_batches")):
+            node.register_buffer(name, t)
+        else:
+            node.register_parameter(name, nn.Parameter(t, requires_grad=False))
+    torch.save({"model": root}, path)
+
+
+def _calibrated_yolo(torch, variant: str, frames4: np.ndarray) -> dict:
+    """The state_dict of `variant` (80 classes) from PyTorch's seeded init
+    with every BatchNorm's statistics those of its input on frames4 at 640
+    (one forward pass in training mode) and the class biases lowered by 4:
+    scores that vary as a trained model's do. With the init's statistics
+    every anchor of a deep random net scores the same, and the NMS then
+    breaks exact ties by one ulp of difference between two devices."""
+    from rtvm_tpu_torch.models.yolo import postprocess as pp
+    from rtvm_tpu_torch.models.yolo.model import build_yolo
+    from rtvm_tpu_torch.models.yolo.modules import BatchNorm
+
+    model = build_yolo(variant, 80, seed=SEED, device="cpu")
+
+    def take_stats(bn, inp, _):
+        x = inp[0].float()
+        bn.mean.copy_(x.mean(dim=(0, 2, 3)))
+        bn.var.copy_(x.var(dim=(0, 2, 3), unbiased=False))
+
+    hooks = [m.register_forward_hook(take_stats) for m in model.modules()
+             if isinstance(m, BatchNorm)]
+    model.train()
+    with torch.no_grad():
+        model(pp.preprocess_frames(torch.as_tensor(frames4), DET_IMGSZ)[0])
+    for h in hooks:
+        h.remove()
+    values = {k: v.clone() for k, v in model.state_dict().items()}
+    for s in range(3):
+        values[f"DetectHead_0.Conv_{2 * s + 1}.bias"] -= 4.0
+    return values
+
+
+def phase_weights_pt(torch, dev, tmp: str, frames4: np.ndarray, card: str) -> dict:
+    """The ultralytics .pt route: weights/yolov8n_aerial.npz written as an
+    ultralytics-layout .pt and converted back equals the .npz route's
+    state_dict, with the same logits on the card; ObjectDetector("yolo11s")
+    (no bundled checkpoint) from a seeded .pt on the card against its run on
+    the CPU."""
+    from rtvm_tpu_torch import kernels
+    from rtvm_tpu_torch.detect.detector import ObjectDetector
+    from rtvm_tpu_torch.models.yolo import weights as W
+    from rtvm_tpu_torch.models.yolo.convert import flax_to_state_dict
+    from rtvm_tpu_torch.models.yolo.model import build_yolo
+    from rtvm_tpu_torch.models.yolo.postprocess import match_detections
+    from rtvm_tpu_torch.utils.checkpoint import load_pytree_npz
+
+    t0 = time.time()
+    want = flax_to_state_dict(load_pytree_npz(DETECT_MODELS["yolov8n"][0]), "yolov8n")
+    pt = os.path.join(tmp, "yolov8n_ultralytics.pt")
+    write_ultralytics_pt(torch, pt, want, "yolov8n", half=False)
+    kernels.reset_launches()
+    model = build_yolo("yolov8n", num_classes=8, device="cpu")
+    t = time.time()
+    got = W.convert_to_state_dict(W.load_ultralytics_state_dict(pt), model, "yolov8n")
+    conv_s = time.time() - t
+    check(set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want),
+          "weights_pt: the .pt route's yolov8n state_dict differs from the .npz route's")
+    model.load_state_dict(got)
+    model.to(dev)
+    ref = _bundled_yolo(torch, dev)
+    x = torch.as_tensor(frames4).to(dev).flip(-1).permute(0, 3, 1, 2).float()[:, :, :352] / 255.0
+    with torch.inference_mode():
+        a, b = model(x), ref(x)
+    check(all(torch.equal(u, v) for u, v in zip(a[0] + a[1], b[0] + b[1])),
+          "weights_pt: logits of the .pt route differ from the .npz route's on the card")
+
+    values = _calibrated_yolo(torch, "yolo11s", frames4)
+    pt11 = os.path.join(tmp, "yolo11s.pt")
+    write_ultralytics_pt(torch, pt11, values, "yolo11s", half=True)
+    card_det = ObjectDetector("yolo11s", weights_path=pt11, load_world=False, device=dev)
+    cpu_det = ObjectDetector("yolo11s", weights_path=pt11, load_world=False, device="cpu")
+    check(card_det.weights_loaded and card_det.weights_source == pt11,
+          f"weights_pt: yolo11s loaded {card_det.weights_source}")
+    (cb, cc), _ = cpu_det.head_logits(frames4, DET_IMGSZ, torch.float32)
+    (gb, gc), _ = card_det.head_logits(frames4, DET_IMGSZ, torch.float32)
+    rel = max(float((g.cpu() - c).abs().max()) / float(c.abs().max())
+              for g, c in zip(gb + gc, cb + cc))
+    m = match_detections(cpu_det._infer_fn(DET_IMGSZ, DET_CONF, DET_IOU, torch.float32)(frames4),
+                         card_det._infer_fn(DET_IMGSZ, DET_CONF, DET_IOU, torch.float32)(frames4))
+    _, share_min, gap_max = DET_BOUNDS["float32"]
+    check(rel <= PT_LOGIT_TOL and m["share"] >= share_min and m["max_score_gap"] <= gap_max,
+          f"weights_pt: yolo11s on the card against the CPU: logits {rel:.3g}, {m}")
+    counts = dict(kernels.launches)
+    check(counts == NO_LAUNCHES, f"weights_pt: launches {counts}")
+    phase("weights_pt", t0, f"yolov8n .npz -> ultralytics .pt -> state_dict equal, converted in "
+          f"{conv_s:.3f} s, logits bitwise on the card; yolo11s from a seeded half-precision .pt "
+          f"on the card: logits {rel:.3g} of the CPU run's, {m['n_ref']} detections, matched "
+          f"{m['share']:.4f}, score gap {m['max_score_gap']:.3g}; launches {counts}; on {card}")
+    return counts
+
+
 def _timed_build(build):
     t = time.time()
     return build(), time.time() - t
@@ -3119,6 +3602,9 @@ def main() -> int:
             by_path["eval_yolo"] = phase_eval_yolo(torch, dev, card)
             by_path["train_world"] = phase_train_world(torch, dev, tmp, card)
             by_path["train_depth"] = phase_train_depth(torch, dev, tmp, card)
+            by_path["mesh"], mesh_orb = phase_mesh(torch, dev, card)
+            by_path["mesh_nccl"] = phase_mesh_nccl(torch, dev, card, mesh_orb)
+            by_path["weights_pt"] = phase_weights_pt(torch, dev, tmp, frames[1:][DET_FRAMES], card)
         row_a["at_1080p"] = row_a_1080p
         for row, key in ((row_a, "warp"), (row_b, "patches")):
             row["launches_by_path"] = {p: c[key] for p, c in by_path.items()}

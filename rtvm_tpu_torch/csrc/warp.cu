@@ -48,6 +48,12 @@
 //   against warp_plain. Every other tile runs the per-pixel path.
 // Frame reads go through __ldg (the read-only path); they are spatially local
 // and are served by L1/L2. No shared-memory staging of the source footprint.
+//
+// Row origin: the output may be a band of canvas rows [row0, row0 + hc) of a
+// taller canvas (the tp-sharded window step, parallel/mesh.py, paints each
+// rank's band). Each pixel maps its canvas row row0 + y, so a band holds the
+// same bits as the same rows of a full-canvas warp; row0 = 0 is the full
+// canvas.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -101,7 +107,8 @@ static __device__ __forceinline__ bool tile_is_empty(const float* g, int xa, int
 
 extern "C" __global__ void __launch_bounds__(256)
 rtvm_warp_bilinear_kernel(const float* __restrict__ frames, const float* __restrict__ gmaps,
-                          float* __restrict__ out, int c, int hf, int wf, int hc, int wc) {
+                          float* __restrict__ out, int c, int hf, int wf, int hc, int wc,
+                          int row0) {
   __shared__ float g[9];
   __shared__ int empty;
   __shared__ __align__(16) float rows[RTVM_TILE_H][RTVM_TILE_W];  // a warp's row, regrouped
@@ -111,8 +118,8 @@ rtvm_warp_bilinear_kernel(const float* __restrict__ frames, const float* __restr
   if (tid < 9) g[tid] = __ldg(gmaps + (size_t)b * 9 + tid);
   __syncthreads();
   if (tid == 0)
-    empty = tile_is_empty(g, tx0, ty0, min(tx0 + RTVM_TILE_W, wc) - 1,
-                          min(ty0 + RTVM_TILE_H, hc) - 1, hf, wf);
+    empty = tile_is_empty(g, tx0, row0 + ty0, min(tx0 + RTVM_TILE_W, wc) - 1,
+                          row0 + min(ty0 + RTVM_TILE_H, hc) - 1, hf, wf);
   __syncthreads();
 
   const int y = ty0 + threadIdx.y;
@@ -140,7 +147,7 @@ rtvm_warp_bilinear_kernel(const float* __restrict__ frames, const float* __restr
   const int x = tx0 + threadIdx.x;
   int taps[RTVM_PX], off[RTVM_PX];  // taps: bit 0 v00, 1 v01, 2 v10, 3 v11 inside the frame
   float fx[RTVM_PX], fy[RTVM_PX], ax[RTVM_PX], ay[RTVM_PX];
-  const float Y = (float)y;
+  const float Y = (float)(row0 + y);
 #pragma unroll
   for (int k = 0; k < RTVM_PX; ++k) {
     const float X = (float)(x + 32 * k);
@@ -196,16 +203,18 @@ rtvm_warp_bilinear_kernel(const float* __restrict__ frames, const float* __restr
 }
 
 // frames [b, c, hf, wf] f32, g [b, 9] f32 row-major G = H^-1 per frame, out
-// [b, c, hc, wc] f32 (all device memory, contiguous). One launch for any b.
-// Returns cudaGetLastError() after the launch (0 on success).
+// [b, c, hc, wc] f32 (all device memory, contiguous): canvas rows
+// [row0, row0 + hc). One launch for any b. Returns cudaGetLastError() after
+// the launch (0 on success).
 extern "C" int rtvm_warp_bilinear(const float* frames, const float* g, float* out, int b, int c,
-                                  int hf, int wf, int hc, int wc, void* stream) {
-  if (b < 1 || b > 65535 || c < 1 || hf < 1 || wf < 1 || hc < 1 || wc < 1)
+                                  int hf, int wf, int hc, int wc, int row0, void* stream) {
+  if (b < 1 || b > 65535 || c < 1 || hf < 1 || wf < 1 || hc < 1 || wc < 1 || row0 < 0 ||
+      row0 > (1 << 24) - hc)
     return (int)cudaErrorInvalidValue;
   const dim3 block(RTVM_TILE_W / RTVM_PX, RTVM_TILE_H);
   const dim3 grid((wc + RTVM_TILE_W - 1) / RTVM_TILE_W, (hc + RTVM_TILE_H - 1) / RTVM_TILE_H, b);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   rtvm_warp_bilinear_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(frames, g, out, c, hf, wf,
-                                                                       hc, wc);
+                                                                       hc, wc, row0);
   return (int)cudaGetLastError();
 }

@@ -17,9 +17,8 @@ passes (the world model at 1280 with flip TTA, the CLAHE-enhanced image,
 each pass reads its detections back in one copy, and the deduplication and
 filters run on the host.
 
-``draw_detections`` draws with ``utils/draw.py`` in place of cv2. The
-ultralytics ``.pt`` route of the constructor is not ported: it raises
-NotImplementedError (ROADMAP.md, Queue 1 item 5).
+``draw_detections`` draws with ``utils/draw.py`` in place of cv2. An
+ultralytics ``.pt`` goes through ``models/yolo/weights.py``.
 """
 
 from __future__ import annotations
@@ -78,8 +77,11 @@ class ObjectDetector:
     if it is an ``.npz``, else ``{model}_aerial.npz`` found in ``.``,
     ``weights/`` or the repository's ``weights/``, with its class names from
     the json beside it; else an ultralytics ``.pt`` (``weights_path`` or
-    ``{model}.pt`` found there), which raises NotImplementedError. A
-    checkpoint that fails to load raises. With none found the model keeps
+    ``{model}.pt`` found there) converted by name onto the model of
+    ``num_classes`` classes (``models/yolo/weights.py``). So a ``.pt`` passed
+    as ``weights_path`` loses to a bundled ``{model}_aerial.npz``, as in the
+    JAX class. A checkpoint that fails to load or convert raises (the JAX
+    class warns and keeps random weights). With none found the model keeps
     random weights drawn from `seed` and ``num_classes`` classes, as the JAX
     class does (``weights_loaded`` False, ``weights_source`` "random").
 
@@ -112,13 +114,19 @@ class ObjectDetector:
             self.weights_loaded = True
             self.weights_source = npz
         else:
-            pt = weights_path or self._find_weights(model, ".pt")
-            if pt:
-                raise NotImplementedError(f"loading an ultralytics checkpoint ({pt}) is not "
-                                          "ported yet (ROADMAP.md, Queue 1 item 5)")
-            self.model = build_yolo(model, num_classes=num_classes, seed=seed, device=self.device)
+            self.model = build_yolo(model, num_classes=num_classes, seed=seed, device="cpu")
             self.class_names = (C.COCO_CLASSES if num_classes == 80
                                 else [str(i) for i in range(num_classes)])
+            pt = weights_path or self._find_weights(model, ".pt")
+            if pt:
+                from rtvm_tpu_torch.models.yolo.weights import (convert_to_state_dict,
+                                                                load_ultralytics_state_dict)
+
+                self.model.load_state_dict(convert_to_state_dict(
+                    load_ultralytics_state_dict(pt), self.model, variant=model))
+                self.weights_loaded = True
+                self.weights_source = pt
+            self.model.to(self.device)
         self._models = {torch.float32: self.model}
         self._infer_cache = {}
         if load_world:

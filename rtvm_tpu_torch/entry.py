@@ -1,12 +1,20 @@
-"""The port's entry point, the counterpart of ``__graft_entry__.entry()``:
-one ORB window step of the streaming mosaic stitcher at a small size
-(K=128 keypoints, 128x256 frames, a window of 2).
+"""The port's entry points, the counterparts of ``__graft_entry__``:
+
+- ``entry()``: one ORB window step of the streaming mosaic stitcher at a
+  small size (K=128 keypoints, 128x256 frames, a window of 2);
+- ``dryrun_multichip(n)``: the multi-device dry run of
+  ``parallel/mesh.py`` in n spawned ranks on a (dp, tp) mesh.
 
     fn, args = entry()          # on cuda; entry(device="cpu") for the CPU
     state, aux = fn(*args)
+
+    python -m rtvm_tpu_torch.entry                       # entry() on the card
+    python -m rtvm_tpu_torch.entry --multichip [N] [--device cpu]
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import torch
@@ -32,7 +40,26 @@ def entry(device=None):
     return fn, (m.state, frames, m.seed, m._fweight, m._wtable)
 
 
+def dryrun_multichip(n_devices: int, device=None, production: bool = True) -> dict:
+    """The multi-device dry run in n_devices ranks (on cuda unless `device`
+    says otherwise): see ``parallel/mesh.py:dryrun_multichip``."""
+    from rtvm_tpu_torch.parallel.mesh import dryrun_multichip as _impl
+
+    return _impl(n_devices, device=device, production=production)
+
+
+def _main(argv) -> None:
+    if "--multichip" in argv:
+        i = argv.index("--multichip")
+        n = int(argv[i + 1]) if i + 1 < len(argv) and argv[i + 1].isdigit() else 8
+        device = argv[argv.index("--device") + 1] if "--device" in argv else None
+        dryrun_multichip(n, device=device)
+        print("multichip dryrun ok")
+    else:
+        fn, args = entry()
+        fn(*args)
+        print("entry ok")
+
+
 if __name__ == "__main__":
-    fn, args = entry()
-    fn(*args)
-    print("entry ok")
+    _main(sys.argv[1:])

@@ -135,7 +135,7 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.rtvm_warp_bilinear.argtypes = [p, p, p, i, i, i, i, i, i, p]
+            lib.rtvm_warp_bilinear.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
             lib.rtvm_warp_bilinear.restype = i
             lib.rtvm_extract_patches_octaves.argtypes = [i, p, i, p, p]
             lib.rtvm_extract_patches_octaves.restype = i

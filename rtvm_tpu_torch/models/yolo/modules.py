@@ -16,6 +16,7 @@ TPU kernel of its own.
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Sequence, Tuple
 
 import torch
@@ -24,6 +25,24 @@ from torch import nn
 
 BN_EPS = 1e-3  # Flax's BatchNorm epsilon here, not PyTorch's 1e-5
 BN_MOMENTUM = 0.97  # the running statistics' weight on their old value, Flax's convention
+
+# The process group whose ranks' batches training-mode BatchNorm normalises
+# as one batch (synced_batch_stats), or None: this process's batch alone.
+_SYNC_GROUP = None
+
+
+@contextlib.contextmanager
+def synced_batch_stats(group):
+    """Within the block, training-mode BatchNorm takes its statistics over
+    the batches of every rank of `group` (the dp training step of
+    ``parallel/mesh.py``): each layer sums its per-channel sum, sum of
+    squares and count over the group with a differentiable all-reduce."""
+    global _SYNC_GROUP
+    prev, _SYNC_GROUP = _SYNC_GROUP, group
+    try:
+        yield
+    finally:
+        _SYNC_GROUP = prev
 
 
 class FlaxScope(nn.Module):
@@ -56,7 +75,8 @@ class BatchNorm(nn.Module):
     the variance is the fast form max(0, E[x^2] - E[x]^2), and the running
     variance takes that biased variance, each running value kept at
     momentum 0.97 (``F.batch_norm``'s momentum weighs the new value and its
-    running variance is the unbiased one)."""
+    running variance is the unbiased one). Under ``synced_batch_stats`` the
+    statistics are those of every rank's batch together."""
 
     def __init__(self, ch: int):
         super().__init__()
@@ -69,8 +89,18 @@ class BatchNorm(nn.Module):
         if not self.training:
             return F.batch_norm(x, self.mean, self.var, self.scale, self.bias, False, 0.0, BN_EPS)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if _SYNC_GROUP is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        else:
+            from rtvm_tpu_torch.parallel.collectives import all_reduce_sum
+
+            c = xf.shape[1]
+            count = xf.new_full((1,), float(xf.numel() // c))  # exact below 2**24
+            sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                                             count]), _SYNC_GROUP)
+            mean = sums[:c] / sums[2 * c]
+            var = torch.clamp(sums[c : 2 * c] / sums[2 * c] - mean * mean, min=0.0)
         with torch.no_grad():
             self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
             self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)

@@ -25,12 +25,14 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from rtvm_tpu_torch.models.optim import (AdamW, adam_moments, constant_schedule,
                                          set_adam_moments)
 from rtvm_tpu_torch.models.yolo.convert import flax_to_torch, torch_to_flax, torch_to_flax_arrays
+from rtvm_tpu_torch.models.yolo.modules import synced_batch_stats
 from rtvm_tpu_torch.utils.checkpoint import NamedNode, flat_to_nested
 
 
@@ -85,11 +87,17 @@ def _sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return -labels * F.logsigmoid(logits) - (1.0 - labels) * F.logsigmoid(-logits)
 
 
-def yolo_loss(model, images: torch.Tensor, targets: Targets, train: bool = True):
+def yolo_loss(model, images: torch.Tensor, targets: Targets, train: bool = True, group=None):
     """images [B, 3, S, S] RGB in 0..1 -> (loss, metrics). `model` is called
     on the images and has a ``cfg`` (strides, reg_max); with train=True its
     BatchNorm layers normalise with the batch's statistics and update their
-    running statistics (``model.train(train)`` is set first)."""
+    running statistics (``model.train(train)`` is set first).
+
+    With a process `group` (the dp training step), the images are this
+    rank's equal share of a batch split over the group: the normalisers are
+    the whole batch's (its size, its positive count summed over the group),
+    so the ranks' losses add up to the loss of the whole batch, which
+    ``metrics["loss"]`` holds."""
     strides = model.cfg.strides
     reg_max = model.cfg.reg_max
     model.train(train)
@@ -105,6 +113,7 @@ def yolo_loss(model, images: torch.Tensor, targets: Targets, train: bool = True)
     total_box = 0.0
     total_dfl = 0.0
     total_pos = 1e-6
+    npos = 0.0
     for bl, cl, s in zip(box_logits, cls_logits, strides):
         b, h, w, _ = bl.shape
         cy = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) * s
@@ -171,10 +180,21 @@ def yolo_loss(model, images: torch.Tensor, targets: Targets, train: bool = True)
                 + torch.gather(logp, -1, lo_i + 1)[..., 0] * wr).sum(-1)
         total_dfl = total_dfl + torch.sum(dfl * assigned)
         total_pos = total_pos + torch.sum(assigned)
+        npos = npos + torch.sum(assigned)
 
     cells = sum(x.shape[1] * x.shape[2] for x in box_logits)
-    loss = 0.5 * total_cls / (b * cells) + (7.5 * total_box + 1.5 * total_dfl) / total_pos
-    return loss, {"loss": loss.detach(), "num_pos": total_pos.detach()}
+    if group is None:
+        loss = 0.5 * total_cls / (b * cells) + (7.5 * total_box + 1.5 * total_dfl) / total_pos
+        return loss, {"loss": loss.detach(), "num_pos": total_pos.detach()}
+    from rtvm_tpu_torch.parallel.collectives import all_reduce_
+
+    # total_cls sums each level's per-image mean over this rank's b images;
+    # the whole batch's term is 0.5 * sum / (B * B * cells), B = b * ranks
+    nb = b * dist.get_world_size(group)
+    total_pos = 1e-6 + all_reduce_(npos.detach().clone(), group)
+    loss = (0.5 * total_cls * b / (nb * nb * cells)
+            + (7.5 * total_box + 1.5 * total_dfl) / total_pos)
+    return loss, {"loss": all_reduce_(loss.detach().clone(), group), "num_pos": total_pos}
 
 
 @dataclasses.dataclass
@@ -187,20 +207,43 @@ class TrainState:
     step: int = 0
 
 
-def make_train_step(model, tx: AdamW):
+def make_train_step(model, tx: AdamW, group=None):
     """train_step(state, images [B, 3, S, S], targets) -> (state, metrics):
     the loss in training mode through `model` (the state's model, or an
-    adapter over it), its gradients and one update of `tx`, in place."""
+    adapter over it), its gradients and one update of `tx`, in place.
+
+    With a process `group`, the dp step: each rank passes its equal share
+    of the batch, BatchNorm takes the whole batch's statistics
+    (``synced_batch_stats``), the loss its normalisers (``yolo_loss``), and
+    the gradients are summed over the group before the update, so that
+    every rank takes the one-process step of the whole batch."""
 
     def train_step(state: TrainState, images: torch.Tensor, targets: Targets):
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = yolo_loss(model, images, targets, train=True)
-        loss.backward()
+        with synced_batch_stats(group):
+            loss, metrics = yolo_loss(model, images, targets, train=True, group=group)
+            loss.backward()
+        if group is not None:
+            _all_reduce_grads(state.optimizer, group)
         tx.update(state.optimizer, state.step)
         state.step += 1
         return state, metrics
 
     return train_step
+
+
+def _all_reduce_grads(optimizer: torch.optim.Optimizer, group) -> None:
+    """Sum every parameter's gradient over the group, in one flat exchange
+    (a parameter without one takes zeros, as optax gives every leaf one)."""
+    from rtvm_tpu_torch.parallel.collectives import all_reduce_
+
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = all_reduce_(torch.cat([p.grad.reshape(-1) for p in params]), group)
+    for p, g in zip(params, torch.split(flat, [p.numel() for p in params])):
+        p.grad.copy_(g.view_as(p))
 
 
 def init_train_state(model: nn.Module, lr: float = 1e-3) -> Tuple[TrainState, AdamW]:

@@ -103,6 +103,15 @@ def _check_config(cfg: MosaicConfig) -> None:
         raise ValueError(f"unknown detector_type: {cfg.features.detector_type}")
 
 
+def canvas_hw(frame_shape, cfg: MosaicConfig) -> Tuple[int, int]:
+    """The canvas (rows, columns) for a frame shape and config: the config's
+    ``canvas_hw``, else the frame scaled by the output factors."""
+    if cfg.canvas_hw is not None:
+        return tuple(cfg.canvas_hw)
+    return (int(cfg.output_height_times * frame_shape[0]),
+            int(cfg.output_width_times * frame_shape[1]))
+
+
 def _extract_features(grays: torch.Tensor, cfg: MosaicConfig):
     """grays [B, H, W] -> (kp [B,K,2], desc, valid [B,K]); desc is [B,K,8]
     int32 words for ORB, [B,K,128] float32 for SIFT."""
@@ -148,6 +157,122 @@ def pair_uniforms(seed: int, first_frame: int, b: int, cfg: MosaicConfig,
     return out
 
 
+def match_and_fit(kps, descs, valids, kp0, desc0, valid0, uniforms: torch.Tensor,
+                  cfg: MosaicConfig):
+    """Matching and RANSAC for the pairs (frame i, frame i - 1) of a run of
+    consecutive frames: kps/descs/valids [N, ...] of frames i, and the
+    frame before the first (kp0, desc0, valid0). `uniforms` [N,
+    num_hypotheses, K] are the pairs' draws. Returns (RANSAC result, the
+    correspondences' validity [N, K])."""
+    rc = cfg.ransac
+    kp_prev = torch.cat([kp0[None], kps[:-1]], dim=0)
+    desc_prev = torch.cat([desc0[None], descs[:-1]], dim=0)
+    valid_prev = torch.cat([valid0[None], valids[:-1]], dim=0)
+    m = _match_pairs(descs, valids, desc_prev, valid_prev, cfg)
+    src, dst, mvalid = match_ops.gather_correspondences(kps, kp_prev, m)
+    res = geo.ransac_homography(
+        src, dst, mvalid,
+        samples=geo.sample_indices(uniforms, mvalid),
+        num_hypotheses=rc.num_hypotheses,
+        reproj_threshold=rc.reproj_threshold,
+        refine_iterations=rc.refine_iterations,
+        min_matches=rc.min_matches,
+    )
+    return res, mvalid
+
+
+def compose_chain(state: MosaicState, H_rels: torch.Tensor, r_ok: torch.Tensor,
+                  weight_table: torch.Tensor, cfg: MosaicConfig):
+    """The sequential 3x3 chain of a window: validate -> smooth -> compose.
+    A match/RANSAC failure skips the frame (no warp, no blend, no history
+    push); a validation failure degrades H_rel to identity and the frame is
+    still blended at the previous pose. Returns (ok [B], H_abs [B, 3, 3],
+    H_old, hbuf, hcount)."""
+    st = cfg.stabilization
+    dev = H_rels.device
+    ok_seq = r_ok & geo.validate_homography(
+        H_rels, st.translation_threshold, st.scale_threshold, st.perspective_threshold
+    )
+    eye = torch.eye(3, dtype=torch.float32, device=dev)
+    H_old, hbuf, hcount = state.H_old, state.hbuf, state.hcount
+    H_abs_list = []
+    for i in range(H_rels.shape[0]):
+        H_v = torch.where(ok_seq[i], H_rels[i], eye)
+        if st.enabled:
+            hbuf2, hcount2, H_s = geo.smooth_homography_step(hbuf, hcount, H_v, weight_table)
+        else:
+            hbuf2, hcount2, H_s = hbuf, hcount, H_v
+        hbuf = torch.where(r_ok[i], hbuf2, hbuf)
+        hcount = torch.where(r_ok[i], hcount2, hcount)
+        H_old = torch.where(r_ok[i], H_old @ H_s, H_old)
+        H_abs_list.append(H_old)
+    return ok_seq, torch.stack(H_abs_list), H_old, hbuf, hcount
+
+
+def last_accepted_features(state: MosaicState, kps, descs, valids, blended_seq):
+    """The last accepted frame's (kp, desc, valid), the next window's match
+    target; the state's own when no frame of the window was accepted."""
+    b = blended_seq.shape[0]
+    any_ok = torch.any(blended_seq)
+    last = (b - 1 - torch.argmax(torch.flip(blended_seq, (0,)).to(torch.int32))).reshape(1)
+    kp_l = torch.where(any_ok, kps.index_select(0, last)[0], state.kp)
+    desc_l = torch.where(any_ok, descs.index_select(0, last)[0], state.desc)
+    valid_l = torch.where(any_ok, valids.index_select(0, last)[0], state.kp_valid)
+    return kp_l, desc_l, valid_l
+
+
+def paint_band(canvas: torch.Tensor, union_coarse: torch.Tensor, frames_cm: torch.Tensor,
+               H_abs: torch.Tensor, blended: torch.Tensor, frame_hw: Tuple[int, int],
+               canvas_hw: Tuple[int, int], band: Optional[Tuple[int, int]] = None,
+               rows=None, gather_coarse=None, halo_rows=None):
+    """The paint stage of a window: warp the frames [B, 3, H, W] by H_abs,
+    weight them and blend the `blended` ones into the canvas one after the
+    other (everything but the blend recurrence is batched).
+
+    `canvas` [3, b - a, Wc] and `union_coarse` hold the canvas rows band =
+    [a, b) (default: all of them) and their coarse cells. rows = ((l, h),
+    (lo, hi)) are the rows whose blend weights the band reads and the rows
+    warped and weighted for them (``parallel/mesh.py:paint_rows``; default:
+    the whole canvas). The exchanges of a band with the others' are given
+    as functions, identities for the whole canvas: gather_coarse(x) maps
+    the band's coarse rows [N, rows, Gw] to the whole coarse grid,
+    halo_rows(x) the band's [b - a, Wc] map to its rows [l, h). Returns the
+    band's (canvas, union_coarse)."""
+    hf, wf = frame_hw
+    hc, wc = canvas_hw
+    a, b = band or (0, hc)
+    (l, h), (lo, hi) = rows or ((0, hc), (0, hc))
+    new = warp_batch(frames_cm, inverse_maps(H_abs), hi - lo, wc, row0=lo)
+    wq = warp_ops.frame_weight_eval(warp_ops.frame_weight_params(H_abs, hf, wf, hc, wc),
+                                    hc, wc, row0=lo, rows=hi - lo)
+    wnew = warp_ops.frame_weight_with_holes(new, wq)[:, l - lo : h - lo]
+    new = new[:, :, l - lo : h - lo]
+    wnew = torch.where(blended[:, None, None], wnew, torch.zeros_like(wnew))
+    own = slice(a - l, b - l)
+    # the mosaic mask before frame i is union0 OR the first i footprints
+    coarse = torch.cat([union_coarse[None], warp_ops.coarse_footprint(wnew[:, own])])
+    if gather_coarse is not None:
+        coarse = gather_coarse(coarse)
+    union0, foot = coarse[0], coarse[1:]
+    inc = torch.cumsum(foot.to(torch.int32), dim=0) > 0
+    unions_before = torch.cat([union0[None], union0[None] | inc[:-1]], dim=0)
+    ups = warp_ops.upsample_weight(warp_ops.coarse_union_distance(unions_before), hc, wc,
+                                   row0=l, rows=h - l)
+    cover0 = torch.amax(canvas, dim=0) > 0.0
+    if halo_rows is not None:
+        cover0 = halo_rows(cover0)
+    incc = torch.cumsum((wnew > 0.0).to(torch.int32), dim=0) > 0
+    covers_before = torch.cat([cover0[None], cover0[None] | incc[:-1]], dim=0)
+    wold = torch.where(covers_before, torch.clamp(ups - warp_ops.CELL_PX / 2.0, min=1.0),
+                       torch.zeros_like(ups))
+    alpha, beta = warp_ops.blend_weights_smoothed(wnew, wold)
+    for i in range(frames_cm.shape[0]):
+        canvas = warp_ops.blend_apply_cm(canvas, new[i, :, own], wnew[i, own], wold[i, own],
+                                         alpha[i, own], beta[i, own])
+    cell = warp_ops.CELL_PX
+    return canvas, union_coarse | inc[-1][a // cell : -(-b // cell)]
+
+
 def make_step_body(frame_shape: Tuple[int, int, int], cfg: MosaicConfig):
     """The window step for a frame shape and config.
 
@@ -155,8 +280,6 @@ def make_step_body(frame_shape: Tuple[int, int, int], cfg: MosaicConfig):
     uniforms=None) -> (state, WindowAux). `uniforms` [B, num_hypotheses, K]
     are the pairs' RANSAC draws; by default they come from pair_uniforms."""
     _check_config(cfg)
-    st = cfg.stabilization
-    rc = cfg.ransac
     hf, wf = frame_shape[0], frame_shape[1]
 
     def step(state: MosaicState, frames: torch.Tensor, seed: int, fweight: torch.Tensor,
@@ -171,84 +294,29 @@ def make_step_body(frame_shape: Tuple[int, int, int], cfg: MosaicConfig):
 
         # --- 2. batched pairwise match + RANSAC (pair i: frame i vs frame i-1) ---
         with record_function("window.match_ransac"):
-            kp_prev = torch.cat([state.kp[None], kps[:-1]], dim=0)
-            desc_prev = torch.cat([state.desc[None], descs[:-1]], dim=0)
-            valid_prev = torch.cat([state.kp_valid[None], valids[:-1]], dim=0)
-            m = _match_pairs(descs, valids, desc_prev, valid_prev, cfg)
-            src, dst, mvalid = match_ops.gather_correspondences(kps, kp_prev, m)
             if uniforms is None:
                 uniforms = pair_uniforms(seed, int(state.frame_idx), b, cfg, dev)
-            res = geo.ransac_homography(
-                src, dst, mvalid,
-                samples=geo.sample_indices(uniforms, mvalid),
-                num_hypotheses=rc.num_hypotheses,
-                reproj_threshold=rc.reproj_threshold,
-                refine_iterations=rc.refine_iterations,
-                min_matches=rc.min_matches,
-            )
+            res, mvalid = match_and_fit(kps, descs, valids, state.kp, state.desc,
+                                        state.kp_valid, uniforms, cfg)
         H_rels, r_ok = res.H, res.ok
 
         # --- 3. sequential 3x3 chain: validate -> smooth -> compose ---
-        # A match/RANSAC failure skips the frame (no warp, no blend, no
-        # history push); a validation failure degrades H_rel to identity and
-        # the frame is still blended at the previous pose.
         with record_function("window.chain"):
-            ok_seq = r_ok & geo.validate_homography(
-                H_rels, st.translation_threshold, st.scale_threshold, st.perspective_threshold
-            )
-            eye = torch.eye(3, dtype=torch.float32, device=dev)
-            H_old, hbuf, hcount = state.H_old, state.hbuf, state.hcount
-            H_abs_list = []
-            for i in range(b):
-                H_v = torch.where(ok_seq[i], H_rels[i], eye)
-                if st.enabled:
-                    hbuf2, hcount2, H_s = geo.smooth_homography_step(hbuf, hcount, H_v, weight_table)
-                else:
-                    hbuf2, hcount2, H_s = hbuf, hcount, H_v
-                hbuf = torch.where(r_ok[i], hbuf2, hbuf)
-                hcount = torch.where(r_ok[i], hcount2, hcount)
-                H_old = torch.where(r_ok[i], H_old @ H_s, H_old)
-                H_abs_list.append(H_old)
-            H_abs_seq = torch.stack(H_abs_list)
+            ok_seq, H_abs_seq, H_old, hbuf, hcount = compose_chain(
+                state, H_rels, r_ok, weight_table, cfg)
         blended_seq = r_ok
 
         # --- 4. paint: everything but the blend recurrence is batched ---
+        hc, wc = state.canvas.shape[1], state.canvas.shape[2]
         with record_function("window.paint"):
-            canvas0, union0 = state.canvas, state.union_coarse
-            hc, wc = canvas0.shape[1], canvas0.shape[2]
-            new_seq = warp_batch(frames_cm, inverse_maps(H_abs_seq), hc, wc)
-            wq_seq = warp_ops.frame_weight_eval(
-                warp_ops.frame_weight_params(H_abs_seq, hf, wf, hc, wc), hc, wc
-            )
-            wnew_seq = warp_ops.frame_weight_with_holes(new_seq, wq_seq)
-            wnew_seq = torch.where(blended_seq[:, None, None], wnew_seq, torch.zeros_like(wnew_seq))
-            foot_seq = warp_ops.coarse_footprint(wnew_seq)
-            # the mosaic mask before frame i is union0 OR the first i footprints
-            inc = torch.cumsum(foot_seq.to(torch.int32), dim=0) > 0
-            unions_before = torch.cat([union0[None], union0[None] | inc[:-1]], dim=0)
-            ups = warp_ops.upsample_weight(warp_ops.coarse_union_distance(unions_before), hc, wc)
-            cover0 = torch.amax(canvas0, dim=0) > 0.0
-            incc = torch.cumsum((wnew_seq > 0.0).to(torch.int32), dim=0) > 0
-            covers_before = torch.cat([cover0[None], cover0[None] | incc[:-1]], dim=0)
-            wold_seq = torch.where(
-                covers_before, torch.clamp(ups - warp_ops.CELL_PX / 2.0, min=1.0), torch.zeros_like(ups)
-            )
-            alpha_seq, beta_seq = warp_ops.blend_weights_smoothed(wnew_seq, wold_seq)
-            canvas = canvas0
-            for i in range(b):
-                canvas = warp_ops.blend_apply_cm(
-                    canvas, new_seq[i], wnew_seq[i], wold_seq[i], alpha_seq[i], beta_seq[i]
-                )
+            canvas, union = paint_band(state.canvas, state.union_coarse, frames_cm, H_abs_seq,
+                                       blended_seq, (hf, wf), (hc, wc))
 
         # last ACCEPTED frame's features become the next matching target
-        any_ok = torch.any(blended_seq)
-        last = (b - 1 - torch.argmax(torch.flip(blended_seq, (0,)).to(torch.int32))).reshape(1)
-        kp_l = torch.where(any_ok, kps.index_select(0, last)[0], state.kp)
-        desc_l = torch.where(any_ok, descs.index_select(0, last)[0], state.desc)
-        valid_l = torch.where(any_ok, valids.index_select(0, last)[0], state.kp_valid)
+        kp_l, desc_l, valid_l = last_accepted_features(state, kps, descs, valids, blended_seq)
 
         new_state = MosaicState(
-            canvas=canvas, union_coarse=union0 | inc[-1], H_old=H_old,
+            canvas=canvas, union_coarse=union, H_old=H_old,
             kp=kp_l, desc=desc_l, kp_valid=valid_l, hbuf=hbuf, hcount=hcount,
             frame_idx=state.frame_idx + b,
         )
@@ -340,14 +408,12 @@ class VideMosaic:
         first_image = np.asarray(first_image)
         h, w, c = first_image.shape
         self.frame_shape = (h, w, c)
+        hc, wc = canvas_hw(self.frame_shape, config)
         if config.canvas_hw is not None:
-            hc, wc = config.canvas_hw
             r0, c0 = config.seed_offset or (hc - h, int(wc / 2 - w / 2))
             self.w_offset = int(np.clip(r0, 0, hc - h))  # row offset
             self.h_offset = int(np.clip(c0, 0, wc - w))  # col offset
         else:
-            hc = int(config.output_height_times * h)
-            wc = int(config.output_width_times * w)
             # frame 0 sits at the bottom, centered in x
             self.w_offset = hc - h
             self.h_offset = int(wc / 2 - w / 2)

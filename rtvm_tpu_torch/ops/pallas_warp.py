@@ -31,12 +31,14 @@ def inverse_maps(H: torch.Tensor) -> torch.Tensor:
     return torch.linalg.inv_ex(H)[0]
 
 
-def warp_plain(frames: torch.Tensor, G: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+def warp_plain(frames: torch.Tensor, G: torch.Tensor, out_h: int, out_w: int,
+               row0: int = 0) -> torch.Tensor:
     """frames [B, C, Hf, Wf] float32, G [B, 3, 3] canvas -> frame maps ->
-    [B, C, out_h, out_w]. The arithmetic is op for op the kernel's."""
+    [B, C, out_h, out_w]: canvas rows row0 .. row0 + out_h - 1. The
+    arithmetic is op for op the kernel's."""
     b, c, hf, wf = frames.shape
     dev = frames.device
-    ys = torch.arange(out_h, dtype=torch.float32, device=dev)[None, :, None]
+    ys = torch.arange(row0, row0 + out_h, dtype=torch.float32, device=dev)[None, :, None]
     xs = torch.arange(out_w, dtype=torch.float32, device=dev)[None, None, :]
     g = G.reshape(b, 9, 1, 1)
     den = g[:, 6] * xs + g[:, 7] * ys + g[:, 8]
@@ -79,13 +81,18 @@ def _check(frames: torch.Tensor, G: torch.Tensor) -> None:
         raise ValueError(f"G is on {G.device}, frames on {frames.device}")
 
 
-def warp_batch(frames: torch.Tensor, G: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+def warp_batch(frames: torch.Tensor, G: torch.Tensor, out_h: int, out_w: int,
+               row0: int = 0) -> torch.Tensor:
     """Warp B frames [B, C, Hf, Wf] by their inverse maps G [B, 3, 3] onto
-    [B, C, out_h, out_w]. CUDA tensors go through the kernel (one launch, G
-    stays on the device); CPU tensors through warp_plain."""
+    [B, C, out_h, out_w], the canvas rows row0 .. row0 + out_h - 1 (a band of
+    a taller canvas, bitwise the same rows of the full warp). CUDA tensors
+    go through the kernel (one launch, G stays on the device); CPU tensors
+    through warp_plain."""
     _check(frames, G)
+    if row0 < 0 or row0 + out_h > 1 << 24:
+        raise ValueError(f"warp_batch: row origin {row0} out of range")
     if frames.device.type == "cpu":
-        return warp_plain(frames, G, out_h, out_w)
+        return warp_plain(frames, G, out_h, out_w, row0)
     if frames.device.type != "cuda":
         raise ValueError(f"warp_batch: no kernel for device {frames.device}")
     b, c, hf, wf = frames.shape
@@ -94,7 +101,7 @@ def warp_batch(frames: torch.Tensor, G: torch.Tensor, out_h: int, out_w: int) ->
         return out
     g = G.reshape(b, 9).contiguous()
     code = kernels.library().rtvm_warp_bilinear(
-        frames.data_ptr(), g.data_ptr(), out.data_ptr(), b, c, hf, wf, out_h, out_w,
+        frames.data_ptr(), g.data_ptr(), out.data_ptr(), b, c, hf, wf, out_h, out_w, row0,
         kernels.stream_handle(frames.device),
     )
     kernels.check(code, "rtvm_warp_bilinear")

@@ -23,7 +23,7 @@ then the JAX function's strict in-frame mask).
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -241,11 +241,18 @@ def _upsample2_aligned(a: torch.Tensor, hc: int, wc: int) -> torch.Tensor:
     return a[..., :hc, :wc]
 
 
-def frame_weight_eval(params: tuple, hc: int, wc: int) -> torch.Tensor:
-    """Analytic frame weights [B, hc, wc] from frame_weight_params: the signed
+def frame_weight_eval(params: tuple, hc: int, wc: int, row0: int = 0,
+                      rows: Optional[int] = None) -> torch.Tensor:
+    """Analytic frame weights [B, rows, wc] of the canvas rows row0 .. row0 +
+    rows - 1 (default: all hc) from frame_weight_params: the signed
     segment-distance field on a stride-2 grid (linear across the quad
     boundary, so the upsample keeps the zero crossing on the edge), upsampled,
-    gated by the full-resolution inside mask."""
+    gated by the full-resolution inside mask. Every pixel is computed alone,
+    so a band (row0 even) holds the same bits as the same rows of the full
+    canvas."""
+    if row0 % 2:
+        raise ValueError(f"frame_weight_eval: row origin {row0} is not even")
+    rows = hc - row0 if rows is None else rows
     segs, sok_v, planes, ok_orient = params
     dev = segs.device
     b, s = segs.shape[0], segs.shape[-1]
@@ -255,15 +262,17 @@ def frame_weight_eval(params: tuple, hc: int, wc: int) -> torch.Tensor:
 
     st = 2
     gh, gw = -(-hc // st), -(-wc // st)
-    ys_lo = (torch.arange(gh, dtype=torch.float32, device=dev) * st)[:, None]
+    # the stride-2 rows that the band's canvas rows read (the next one too)
+    k0, k1 = row0 // st, min(gh, (row0 + rows) // st + 1)
+    ys_lo = (torch.arange(k0, k1, dtype=torch.float32, device=dev) * st)[:, None]
     xs_lo = (torch.arange(gw, dtype=torch.float32, device=dev) * st)[None, :]
     dmin_lo = torch.amin(_seg_dist(xs_lo, ys_lo, sx0, sy0, sx1, sy1, sok), dim=1)
     dmin_lo = torch.where(torch.isfinite(dmin_lo), dmin_lo, torch.full_like(dmin_lo, 4.0 * (hc + wc)))
     inside_lo = torch.all(-(inx * (xs_lo - ipx) + iny * (ys_lo - ipy)) > 0.0, dim=1)
     signed_lo = torch.where(inside_lo, dmin_lo, -dmin_lo)
-    up = _upsample2_aligned(signed_lo, hc, wc)
+    up = _upsample2_aligned(signed_lo, rows, wc)
 
-    ys = torch.arange(hc, dtype=torch.float32, device=dev)[:, None]
+    ys = torch.arange(row0, row0 + rows, dtype=torch.float32, device=dev)[:, None]
     xs = torch.arange(wc, dtype=torch.float32, device=dev)[None, :]
     inside = torch.all(-(inx * (xs - ipx) + iny * (ys - ipy)) > 0.0, dim=1)
     keep = inside & ok_orient[:, None, None]
@@ -326,14 +335,23 @@ def coarse_footprint(w_new: torch.Tensor, cell: int = CELL_PX) -> torch.Tensor:
     return p.reshape(*lead, gh, cell, gw, cell).amax(dim=(-3, -1)) > 0.0
 
 
-def upsample_weight(coarse_px: torch.Tensor, hc: int, wc: int, cell: int = CELL_PX) -> torch.Tensor:
+def upsample_weight(coarse_px: torch.Tensor, hc: int, wc: int, cell: int = CELL_PX,
+                    row0: int = 0, rows: Optional[int] = None) -> torch.Tensor:
     """Bilinear (half-pixel centers, edge-clamped) upsample of coarse distance
-    maps [..., gh, gw] back to canvas resolution [..., hc, wc]."""
+    maps [..., gh, gw] back to canvas resolution: [..., rows, wc], the canvas
+    rows row0 .. row0 + rows - 1 (default: all hc). A band interpolates the
+    coarse rows it reads with one more on each side, so that its rows take
+    the same taps and weights as in the full upsample."""
     gh, gw = coarse_px.shape[-2], coarse_px.shape[-1]
+    rows = hc - row0 if rows is None else rows
+    c0 = max(0, row0 // cell - 1)
+    c1 = min(gh, (row0 + rows - 1) // cell + 2)
     lead = coarse_px.shape[:-2]
-    x = coarse_px.reshape(-1, 1, gh, gw)
-    up = F.interpolate(x, size=(gh * cell, gw * cell), mode="bilinear", align_corners=False)
-    return up.reshape(*lead, gh * cell, gw * cell)[..., :hc, :wc]
+    x = coarse_px[..., c0:c1, :].reshape(-1, 1, c1 - c0, gw)
+    up = F.interpolate(x, size=((c1 - c0) * cell, gw * cell), mode="bilinear",
+                       align_corners=False)
+    off = row0 - c0 * cell
+    return up.reshape(*lead, (c1 - c0) * cell, gw * cell)[..., off : off + rows, :wc]
 
 
 def blend_weights_smoothed(w_new: torch.Tensor, w_old: torch.Tensor):

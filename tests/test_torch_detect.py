@@ -276,14 +276,17 @@ def test_run_pass_and_detect_people(detectors, scenes):
 
 
 def test_detector_surface_not_ported_raises(tmp_path):
-    """Only the ultralytics .pt route is left unported; the open-vocabulary
-    companion (load_world=True, the JAX default) and detect_objects are
-    ported (tests/test_torch_world.py)."""
+    """Every route of the constructor is ported: the open-vocabulary
+    companion (load_world=True, the JAX default) and detect_objects
+    (tests/test_torch_world.py), the ultralytics .pt route
+    (tests/test_torch_weights.py), which raises on a checkpoint it cannot
+    read where the JAX class warns and keeps random weights."""
     td = ObjectDetector("yolov8n", device="cpu")
     assert td.model_world is not None and td.model_world.is_open_vocab
     assert td.model_world.classes == [C.normalize_class_name(c) for c in C.AERIAL_CLASSES]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):  # no yolo11s_aerial.npz
-        ObjectDetector("yolo11s", weights_path="yolo11s.pt", load_world=False, device="cpu")
+    with pytest.raises(FileNotFoundError):  # no yolo11s_aerial.npz: the .pt is read
+        ObjectDetector("yolo11s", weights_path=str(tmp_path / "yolo11s.pt"), load_world=False,
+                       device="cpu")
     # as in the JAX class, a bundled npz is preferred to a .pt path
     assert ObjectDetector("yolov8n", weights_path="yolov8n.pt", load_world=False,
                           device="cpu").weights_source.endswith("yolov8n_aerial.npz")

@@ -354,7 +354,9 @@ mods = ["rtvm_tpu_torch", "rtvm_tpu_torch.config", "rtvm_tpu_torch.device",
         "rtvm_tpu_torch.models.yolo.eval", "rtvm_tpu_torch.models.yolo.synth",
         "rtvm_tpu_torch.models.yolo.train", "rtvm_tpu_torch.models.yolo.train_synth",
         "rtvm_tpu_torch.models.yolo.train_world", "rtvm_tpu_torch.models.depth_synth",
-        "rtvm_tpu_torch.models.train_depth"]
+        "rtvm_tpu_torch.models.train_depth", "rtvm_tpu_torch.parallel",
+        "rtvm_tpu_torch.parallel.mesh", "rtvm_tpu_torch.parallel.collectives",
+        "rtvm_tpu_torch.models.yolo.weights", "rtvm_tpu_torch.entry"]
 for m in mods:
     importlib.import_module(m)
 py_compile.compile("chip_smoke.py", doraise=True)
@@ -395,7 +397,7 @@ def test_port_imports_without_jax_cv2_or_reference_package():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_PROBE], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.strip().splitlines()[-1] == "OK 76"
+    assert proc.stdout.strip().splitlines()[-1] == "OK 81"
 
 
 def test_port_root_has_the_jax_root_s_public_names():

@@ -194,6 +194,46 @@ def test_tile_skip_rule_is_sound(kind):
     assert skipped >= 0.6 * missed, (skipped, missed)
 
 
+BANDS = [(0, HC), (0, 1), (37, 50), (96, 96), (191, 1), (8, 184)]  # (row0, rows)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_warp_band_is_the_full_warp_s_rows(small_image, name):
+    """Kernel A with a row origin (the tp-sharded step paints a band): the
+    plain version's band is bitwise the same rows of the full warp, and the
+    wrapper passes the origin through and checks it."""
+    frames = _t(_cm(small_image))[None]
+    G = inverse_maps(_t(CASES[name])[None])
+    full = warp_plain(frames, G, HC, WC)
+    for row0, rows in BANDS:
+        band = warp_batch(frames, G, rows, WC, row0=row0)
+        assert band.shape == (1, 3, rows, WC)
+        assert torch.equal(band, full[:, :, row0 : row0 + rows]), (row0, rows)
+    with pytest.raises(ValueError, match="row origin"):
+        warp_batch(frames, G, 8, WC, row0=-1)
+
+
+def test_weight_and_upsample_bands_are_the_full_maps_rows():
+    """frame_weight_eval (even row origins) and upsample_weight: every band
+    holds the same bits as the same rows of the full canvas."""
+    Hs = np.stack([CASES["rot2_persp"], CASES["rot30"],
+                   np.array([[1, 0, 150.0], [0, 1, -20.0], [0, 0, 1]], np.float32)])
+    params = TW.frame_weight_params(_t(Hs), HF, WF, HC, WC)
+    full = TW.frame_weight_eval(params, HC, WC)
+    assert torch.equal(TW.frame_weight_eval(params, HC, WC, row0=0, rows=HC), full)
+    for row0, rows in BANDS:
+        row0 -= row0 % 2
+        band = TW.frame_weight_eval(params, HC, WC, row0=row0, rows=rows)
+        assert torch.equal(band, full[:, row0 : row0 + rows]), (row0, rows)
+    with pytest.raises(ValueError, match="not even"):
+        TW.frame_weight_eval(params, HC, WC, row0=3, rows=8)
+    coarse = _t(np.random.RandomState(9).rand(2, HC // 4, WC // 4).astype(np.float32) * 40)
+    up = TW.upsample_weight(coarse, HC, WC)
+    for row0, rows in ((0, HC), (37, 50), (96, 96), (8, 184), (101, 91)):
+        band = TW.upsample_weight(coarse, HC, WC, row0=row0, rows=rows)
+        assert torch.equal(band, up[:, row0 : row0 + rows]), (row0, rows)
+
+
 # ------------------------------------------------------------------ paint chain
 
 
