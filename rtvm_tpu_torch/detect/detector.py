@@ -41,6 +41,7 @@ from rtvm_tpu_torch.models.yolo.model import build_yolo
 from rtvm_tpu_torch.ops.clahe import enhance_for_detection
 from rtvm_tpu_torch.utils import draw
 from rtvm_tpu_torch.utils.checkpoint import load_pytree_npz
+from rtvm_tpu_torch.utils.timing import count, span
 
 _REPO_WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "weights")
@@ -161,10 +162,12 @@ class ObjectDetector:
         """Letterbox [B, H, W, 3] BGR uint8 frames and run the model in
         `dtype`. Returns (box_logits, cls_logits) per stride as float32 NCHW,
         and the letterbox's (scale, pad_y, pad_x)."""
-        x, scale, py, px = pp.preprocess_frames(self._frames(frames_u8), imgsz)
-        with torch.inference_mode():
-            box_l, cls_l = self.model_as(dtype)(x.to(dtype))
-        return ([b.float() for b in box_l], [c.float() for c in cls_l]), (scale, py, px)
+        with span("detect.preprocess"):
+            x, scale, py, px = pp.preprocess_frames(self._frames(frames_u8), imgsz)
+        with span("detect.model"):
+            with torch.inference_mode():
+                box_l, cls_l = self.model_as(dtype)(x.to(dtype))
+            return ([b.float() for b in box_l], [c.float() for c in cls_l]), (scale, py, px)
 
     def _infer_fn(self, imgsz, conf: float, iou: float,
                   dtype: torch.dtype = torch.bfloat16) -> Callable[..., pp.Detections]:
@@ -177,26 +180,33 @@ class ObjectDetector:
             def run(frames_u8) -> pp.Detections:
                 (box_l, cls_l), (scale, py, px) = self.head_logits(frames_u8, imgsz, dtype)
                 with torch.inference_mode():
-                    boxes, scores = pp.decode_predictions(box_l, cls_l, cfg.strides, cfg.reg_max)
-                    det = pp.nms_fixed(boxes, scores, conf, iou)
-                    return det._replace(boxes=pp.unletterbox_boxes(det.boxes, scale, py, px))
+                    with span("detect.decode"):
+                        boxes, scores = pp.decode_predictions(box_l, cls_l, cfg.strides,
+                                                              cfg.reg_max)
+                    with span("detect.nms"):  # counts its sweeps (nms_fixed)
+                        det = pp.nms_fixed(boxes, scores, conf, iou)
+                        return det._replace(boxes=pp.unletterbox_boxes(det.boxes, scale, py, px))
 
             self._infer_cache[key] = run
         return self._infer_cache[key]
 
     def _run_pass(self, images_u8, imgsz, conf: float, iou: float) -> List[List[dict]]:
         """images [B, H, W, 3] BGR uint8 -> per-image detection dicts."""
-        det = self._infer_fn(imgsz, conf, iou)(images_u8)
-        boxes, scores = det.boxes.cpu().numpy(), det.scores.cpu().numpy()
-        cls, valid = det.classes.cpu().numpy(), det.valid.cpu().numpy()
-        out = []
-        for b in range(len(images_u8)):
-            out.append([{"bbox": [float(v) for v in boxes[b, i]],
-                         "class": C.normalize_class_name(self.class_names[int(cls[b, i])]),
-                         "confidence": float(scores[b, i]),
-                         "source": "yolo"}
-                        for i in np.flatnonzero(valid[b])])
-        return out
+        with span("detect.pass"):
+            det = self._infer_fn(imgsz, conf, iou)(images_u8)
+            with span("detect.read"):
+                host = [t.cpu().numpy() for t in (det.boxes, det.scores, det.classes, det.valid)]
+                count("bytes", sum(a.nbytes for a in host))
+            boxes, scores, cls, valid = host
+            with span("detect.dicts"):
+                out = []
+                for b in range(len(images_u8)):
+                    out.append([{"bbox": [float(v) for v in boxes[b, i]],
+                                 "class": C.normalize_class_name(self.class_names[int(cls[b, i])]),
+                                 "confidence": float(scores[b, i]),
+                                 "source": "yolo"}
+                                for i in np.flatnonzero(valid[b])])
+            return out
 
     # ------------------------------------------------------------- public API
     def detect_people(self, frame) -> List[List[int]]:

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from rtvm_tpu_torch.models.yolo.modules import dfl_expectation
+from rtvm_tpu_torch.utils.timing import count
 
 PAD_VALUE = 0.447  # the letterbox's fill, in 0..1
 
@@ -86,6 +87,7 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, conf_threshold: float =
     for _ in range(k):
         nxt = keep0 & ~torch.any(sup & keep[:, :, None], dim=1)
         changed = bool(torch.any(nxt != keep))  # one card-to-host read a sweep
+        count("sweeps")
         keep = nxt
         if not changed:
             break

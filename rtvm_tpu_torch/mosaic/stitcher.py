@@ -31,7 +31,6 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from rtvm_tpu_torch.config import MosaicConfig
 from rtvm_tpu_torch.device import resolve_device
@@ -45,6 +44,7 @@ from rtvm_tpu_torch.ops.features import orb as orb_ops
 from rtvm_tpu_torch.ops.features import sift as sift_ops
 from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch
 from rtvm_tpu_torch.utils import draw
+from rtvm_tpu_torch.utils.timing import count, span
 
 class MosaicState(NamedTuple):
     """Full resumable pipeline state (the same fields as the JAX package's)."""
@@ -289,11 +289,11 @@ def make_step_body(frame_shape: Tuple[int, int, int], cfg: MosaicConfig):
         frames_cm = frames.to(torch.float32).permute(0, 3, 1, 2).contiguous()  # [B, 3, H, W]
 
         # --- 1. batched feature extraction ---
-        with record_function("window.features"):
+        with span("window.features", device_range=True):
             kps, descs, valids = _extract_features(color.bgr2gray(frames), cfg)
 
         # --- 2. batched pairwise match + RANSAC (pair i: frame i vs frame i-1) ---
-        with record_function("window.match_ransac"):
+        with span("window.match_ransac", device_range=True):
             if uniforms is None:
                 uniforms = pair_uniforms(seed, int(state.frame_idx), b, cfg, dev)
             res, mvalid = match_and_fit(kps, descs, valids, state.kp, state.desc,
@@ -301,14 +301,14 @@ def make_step_body(frame_shape: Tuple[int, int, int], cfg: MosaicConfig):
         H_rels, r_ok = res.H, res.ok
 
         # --- 3. sequential 3x3 chain: validate -> smooth -> compose ---
-        with record_function("window.chain"):
+        with span("window.chain", device_range=True):
             ok_seq, H_abs_seq, H_old, hbuf, hcount = compose_chain(
                 state, H_rels, r_ok, weight_table, cfg)
         blended_seq = r_ok
 
         # --- 4. paint: everything but the blend recurrence is batched ---
         hc, wc = state.canvas.shape[1], state.canvas.shape[2]
-        with record_function("window.paint"):
+        with span("window.paint", device_range=True):
             canvas, union = paint_band(state.canvas, state.union_coarse, frames_cm, H_abs_seq,
                                        blended_seq, (hf, wf), (hc, wc))
 
@@ -356,7 +356,7 @@ def make_clip_step(frame_shape: Tuple[int, int, int], cfg: MosaicConfig, det_fn=
         if det_fn is None:
             return state, aux
         w, b = windows.shape[0], windows.shape[1]
-        with record_function("clip.detect"):
+        with span("clip.detect", device_range=True):
             dets = det_fn(windows.reshape((w * b,) + windows.shape[2:]))
         return state, aux, type(dets)(*(d.reshape((w, b) + d.shape[1:]) for d in dets))
 
@@ -428,7 +428,10 @@ class VideMosaic:
     def _frames(self, frames) -> torch.Tensor:
         if isinstance(frames, torch.Tensor):
             return frames.to(device=self.device, dtype=torch.uint8)
-        return torch.as_tensor(np.asarray(frames), dtype=torch.uint8).to(self.device)
+        with span("upload"):  # host frames: one copy to the device
+            out = torch.as_tensor(np.asarray(frames), dtype=torch.uint8).to(self.device)
+            count("bytes", out.numel())
+        return out
 
     def _init_state(self, first_image: np.ndarray) -> MosaicState:
         h, w, c = self.frame_shape

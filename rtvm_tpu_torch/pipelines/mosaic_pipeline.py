@@ -15,6 +15,11 @@ windows' diagnostics once after the loop. Unlike the JAX driver, no window
 waits for the device (that was a workaround for the TPU's transport); the
 clock stops after ``torch.cuda.synchronize()``.
 
+The loops' stages (``utils/timing.py``) record the spans inside them with
+each window's (or fused chunk's) request id; on CUDA the driver waits for
+the device once before the loop, records a CUDA event after each window's
+or chunk's step, and sets the stage's ``done`` from it after the last sync.
+
 Unlike the JAX driver, ``main`` does not catch an exception of the
 detection on the mosaic or of the navigation map: a run whose detection
 fails raises instead of writing a partial output. ``main(images_dir=...)``
@@ -37,12 +42,20 @@ from rtvm_tpu_torch.io.jpeg import imwrite_jpg
 from rtvm_tpu_torch.io.video import VideoReader
 from rtvm_tpu_torch.mosaic.stitcher import VideMosaic, WindowAux
 from rtvm_tpu_torch.utils.image import crop_black_areas, scale_to_screen
-from rtvm_tpu_torch.utils.timing import StageTimer
+from rtvm_tpu_torch.utils.timing import StageTimer, count, span
 
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _upload(frames, dev: torch.device) -> torch.Tensor:
+    """Host frames to the device, in the span ``upload`` with its bytes."""
+    with span("upload"):
+        out = torch.as_tensor(frames).to(dev)
+        count("bytes", out.numel() * out.element_size())
+    return out
 
 
 def _rereadable(source):
@@ -143,13 +156,16 @@ def run_mosaic(
     frame_count = 1
     per_frame_dets = []
     aux_pending = []  # kept on the device; read once after the loop
+    timer.device_reference(dev)
     t0 = time.perf_counter()
     windows = 0
     first_done = [None, 1]  # (t after first window, frames it covered)
     for frames, n_valid in reader.windows():
-        with timer.stage("window"):
-            win = torch.as_tensor(frames).to(dev)
+        timer.request = windows
+        with timer.stage("window") as rec:
+            win = _upload(frames, dev)
             aux = mosaic.process_window(win)
+            timer.mark_done(rec)
         aux_pending.append((aux, n_valid))
         if per_frame_detector is not None:
             with timer.stage("detect"):
@@ -179,6 +195,8 @@ def run_mosaic(
             update_callback(frame_count, mosaic.output_img_u8, pct)
     _sync(dev)
     elapsed = time.perf_counter() - t0
+    timer.request = None
+    timer.resolve_done()
     ok_frames = two_pass_frames = 0
     if aux_pending:
         flags = torch.stack([torch.stack([a.ok, a.two_pass]) for a, _ in aux_pending]).cpu().numpy()
@@ -245,8 +263,9 @@ def _run_mosaic_fused(
 
     def dispatch(windows):
         nonlocal n_full
-        with timer.stage("clip"):
-            out = mosaic.process_clip(torch.as_tensor(np.stack(windows)).to(dev), det_fn=det_fn)
+        with timer.stage("clip") as rec:
+            out = mosaic.process_clip(_upload(np.stack(windows), dev), det_fn=det_fn)
+            timer.mark_done(rec)
             a, d = out if det_fn is not None else (out, None)
             auxes.append(a)
             detss.append(d)
@@ -260,8 +279,10 @@ def _run_mosaic_fused(
             with timer.stage("callback"):
                 update_callback(done, mosaic.output_img_u8, pct)
 
+    timer.device_reference(dev)
     it = reader.windows()
     while True:
+        timer.request = len(auxes)  # the chunk being gathered
         with timer.stage("decode_wait"):
             item = next(it, None)
         if item is None:
@@ -284,11 +305,14 @@ def _run_mosaic_fused(
             dets = type(detss[0])(*(torch.cat(f) for f in zip(*detss)))
     tail_ok = 0
     for frames, n_valid in tail:
-        with timer.stage("window"):
-            tail_aux = mosaic.process_window(torch.as_tensor(frames).to(dev))
+        with timer.stage("window") as rec:
+            tail_aux = mosaic.process_window(_upload(frames, dev))
+            timer.mark_done(rec)
         tail_ok += int(tail_aux.ok[:n_valid].sum())
     _sync(dev)
     elapsed = time.perf_counter() - t0
+    timer.request = None
+    timer.resolve_done()
 
     frames_total = 1 + n_frames
     ok = (int(aux.ok.sum()) if aux is not None else 0) + tail_ok

@@ -274,4 +274,4 @@ def test_stage_timer_reports_and_writes_a_chrome_trace(tmp_path):
     assert t.counts == {"window": 2, "export": 1, "detect": 1} and len(t.spans) == 3
     assert t.report().splitlines()[0].split()[0] in ("window", "export", "detect")
     trace = json.loads(open(t.write_chrome_trace(str(tmp_path / "t.json"))).read())
-    assert [e["name"] for e in trace["traceEvents"]] == ["process_name", "window", "window", "export"]
+    assert [e["name"] for e in trace["traceEvents"]] == ["process_name", "window", "export", "detect"]
