@@ -11,7 +11,11 @@ Phases, each printed with its result and seconds on its own line:
   3. kernel A (the warp) against its plain PyTorch version on four fixed maps;
   4. kernel B (the SIFT patch copy) against its plain version on random
      origins at every octave shape, then timed on the origins the SIFT stages
-     produce for one 16-frame window of the clip;
+     produce for one 16-frame window of the clip; kernel C (phase `union`,
+     the paint's coarse union distance) against its plain version, bitwise,
+     at the benchmark cells' 16x180x192 and 16x554x608 grids and on a grown
+     canvas's 2x900x1000 (more rows than its shared-memory tile), timed
+     beside it with its bound and its registers and spills;
   5. the SIFT window step (BASELINE config 2): 3 windows of 16 frames of a
      seeded synthetic world through VideMosaic.process_window, checked against
      the known camera path and against the same run with the plain versions
@@ -144,6 +148,7 @@ import numpy as np
 T_START = time.time()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+F32_NOFMA_OPS_PER_S = F32_OPS_PER_S / 2  # the same with no multiply-add: one operation a lane a clock
 FRAME_H, FRAME_W = 360, 640  # BASELINE configs 1 and 2 frames
 WINDOW = 16
 N_WINDOWS = 3
@@ -200,7 +205,7 @@ def counted(run):
     return out, dict(kernels.launches)
 
 
-NO_LAUNCHES = {"warp": 0, "patches": 0}  # paths that neither warp nor cut SIFT patches
+NO_LAUNCHES = {"warp": 0, "patches": 0, "union": 0}  # paths that neither paint nor cut SIFT patches
 
 
 # ----------------------------------------------------------------- inputs
@@ -497,6 +502,91 @@ def phase_patches(torch, dev, frames_u8: np.ndarray) -> dict:
             "library_ms": library_ms, "device_ms": dev_ms}
 
 
+UNION_SHAPES = {  # [N, Gh, Gw] coarse grids of kernel C
+    "live": (16, 180, 192),  # sift360-yolov8n.live's window: 720x768 canvas, 4-px cells
+    "fused": (16, 554, 608),  # orb1080-yolov8l.fused's window: 2216x2432 canvas
+    "grown": (2, 900, 1000),  # a canvas grown past both: Gh well above the 128-row tile
+}
+UNION_OPS = 8  # float32 operations a candidate: |y - v|, max, min, sub, 2 mul, add, running min
+
+
+def union_grids(torch, dev, shape, gen) -> dict:
+    """Occupancy grids [N, Gh, Gw] on the card: random cells at three
+    shares, and a mosaic's union (frame-sized rectangles of cells, with a
+    few holes)."""
+    n, gh, gw = shape
+    out = {f"random {p}": torch.rand(shape, generator=gen, device=dev) < p for p in (0.5, 0.9, 0.99)}
+    union = torch.zeros(shape, dtype=torch.bool, device=dev)
+    ys = torch.randint(0, max(1, gh // 2), (n, 6), generator=gen, device=dev).tolist()
+    xs = torch.randint(0, max(1, gw // 2), (n, 6), generator=gen, device=dev).tolist()
+    for i in range(n):
+        for y, x in zip(ys[i], xs[i]):
+            union[i, y : y + gh // 2, x : x + gw // 2] = True
+    out["mosaic"] = union & (torch.rand(shape, generator=gen, device=dev) < 0.995)
+    return out
+
+
+def phase_union(torch, dev, regs: dict) -> dict:
+    """Kernel C against coarse_union_distance_plain, bitwise, on every grid
+    of union_grids at each of UNION_SHAPES and at cell_px 1 and 4; then timed
+    on the mosaic grids beside the plain version, with its bound (operations
+    at the float32 rate without multiply-add, or bytes) and the ptxas report
+    of its two kernels. Returns kernel C's row of the kernel table (the fused
+    window's numbers, the others under by_shape)."""
+    from rtvm_tpu_torch import kernels
+    from rtvm_tpu_torch.ops.warp import coarse_union_distance, coarse_union_distance_plain
+
+    t0 = time.time()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    names = ("rtvm_union_rows_kernel", "rtvm_union_cols_kernel")
+    by_shape, notes = {}, []
+    for key, shape in UNION_SHAPES.items():
+        grids = union_grids(torch, dev, shape, gen)
+        for what, g in grids.items():
+            for cell_px in (1.0, 4.0):
+                kernels.reset_launches()
+                got = coarse_union_distance(g, cell_px)
+                check(kernels.launches["union"] == 1, f"union {key} {what}: launches {kernels.launches}")
+                want = coarse_union_distance_plain(g, cell_px)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    d = float((got - want).abs().max())
+                    raise CheckFailed(f"union {key} {what} cell {cell_px}: kernel C differs from "
+                                      f"the plain version by up to {d}")
+        g = grids["mosaic"]
+        ms = cuda_ms(torch, lambda: coarse_union_distance(g))
+        parts = [device_ms(torch, lambda: coarse_union_distance(g), k) for k in names]
+        dev_ms = None if None in parts else sum(parts)
+        wrap_us = host_us(torch, lambda: coarse_union_distance(g))
+        plain_ms = cuda_ms(torch, lambda: coarse_union_distance_plain(g), reps=3, warmup=1)
+        n, gh, gw = shape
+        nops = n * gh * gh * gw * UNION_OPS
+        nbytes = n * gh * gw * (1 + 4)  # the grids in, the distances out
+        t_ops = nops / F32_NOFMA_OPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        by_shape[key] = {"shape": list(shape), "ms": ms, "device_ms": dev_ms, "host_us": wrap_us,
+                         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                         "share_of_bound": bound_ms / (dev_ms or ms)}
+        notes.append(f"{key} {list(shape)}: kernel {ms:.4f} ms (on the card {fmt_ms(dev_ms)}: "
+                     f"{', '.join(fmt_ms(x) for x in parts)}; host {wrap_us:.1f} us a call), plain "
+                     f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {nops / 1e9:.2f} G "
+                     f"operations, {nbytes / 1e6:.2f} MB), {bound_ms / (dev_ms or ms):.3f} of it")
+    ptx = "; ".join(f"{k}: {regs[k]['registers']} registers, {regs[k]['smem']} B smem, spills "
+                    f"{regs[k]['spill_stores']}/{regs[k]['spill_loads']} B" for k in names if k in regs)
+    phase("union", t0, f"kernel C bitwise equal to coarse_union_distance_plain on random grids "
+                       f"(0.5, 0.9, 0.99 occupied) and a mosaic's union at {list(UNION_SHAPES)}, "
+                       f"cell_px 1 and 4; timed on the mosaic's: " + "; ".join(notes)
+          + f"; {ptx or 'no ptxas report'}")
+    fused = by_shape["fused"]
+    return {"name": "union_distance", "route": "cuda", "source": "rtvm_tpu_torch/csrc/union.cu",
+            "replaces": "none (XLA fuses rtvm_tpu/ops/warp.py:63 on the TPU)", "max_abs_err": 0.0,
+            "ms": fused["ms"], "plain_ms": fused["plain_ms"], "bound_ms": fused["bound_ms"],
+            "bound_by": fused["bound_by"], "library_ms": None, "device_ms": fused["device_ms"],
+            "by_shape": by_shape}
+
+
 def run_mosaic(torch, dev, frames: np.ndarray, detector: str, no_sync: bool = False):
     """VideMosaic on frames[0], then N_WINDOWS windows of WINDOW frames.
     With no_sync, windows 2.. run under CUDA's sync debug mode "error" (the
@@ -533,6 +623,7 @@ def phase_window(torch, dev, frames: np.ndarray, path: np.ndarray, card: str,
     import rtvm_tpu_torch.mosaic.stitcher as stitcher_mod
     import rtvm_tpu_torch.ops.features.sift as sift_mod
     from rtvm_tpu_torch import kernels
+    from rtvm_tpu_torch.ops import warp as warp_ops
     from rtvm_tpu_torch.ops.pallas_patches import extract_patches_octaves_plain
     from rtvm_tpu_torch.ops.pallas_warp import warp_plain
 
@@ -567,16 +658,19 @@ def phase_window(torch, dev, frames: np.ndarray, path: np.ndarray, card: str,
           f"{name}: canvas shape {tuple(canvas_k.shape)}")
     fps = (N_WINDOWS - 1) * WINDOW / sum(secs[1:])
 
-    # the same run with the plain versions in place of both kernels
-    saved = stitcher_mod.warp_batch, sift_mod.extract_patches_octaves
+    # the same run with the plain versions in place of the three kernels
+    saved = (stitcher_mod.warp_batch, sift_mod.extract_patches_octaves,
+             warp_ops.coarse_union_distance)
     stitcher_mod.warp_batch = warp_plain
     sift_mod.extract_patches_octaves = extract_patches_octaves_plain
+    warp_ops.coarse_union_distance = warp_ops.coarse_union_distance_plain
     try:
         kernels.reset_launches()
         mp, auxs_p, secs_p = run_mosaic(torch, dev, frames, detector)
         check(sum(kernels.launches.values()) == 0, f"{name}: the plain run launched a kernel")
     finally:
-        stitcher_mod.warp_batch, sift_mod.extract_patches_octaves = saved
+        (stitcher_mod.warp_batch, sift_mod.extract_patches_octaves,
+         warp_ops.coarse_union_distance) = saved
     mse = float(((canvas_k - mp.state.canvas) ** 2).mean())
     psnr = math.inf if mse == 0 else 10 * math.log10(255.0**2 / mse)
     check(psnr >= MIN_PSNR_DB, f"{name}: kernel vs plain canvas PSNR {psnr:.2f} dB < {MIN_PSNR_DB}")
@@ -645,7 +739,7 @@ def phase_detect(torch, dev, frames: np.ndarray, card: str, model: str, window_r
     first_s = time.time() - t
     counts = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
-    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1}
+    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS}
     check(counts == want, f"{name}: launch counts {counts}, expected {want}")
 
     _, w_auxs, w_m, w_fps = window_run
@@ -815,7 +909,7 @@ def phase_pipeline(torch, dev, clip: str, tmp: str, card: str, window_m, det11: 
         wall = time.time() - t
         counts = dict(kernels.launches)
     n = N_WINDOWS * WINDOW
-    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1}
+    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS}
     check(counts == want, f"pipeline: launch counts {counts}, expected {want}")
     check(stats["frames"] == n + 1 and stats["accepted"] >= MIN_ACCEPTED,
           f"pipeline: stats {stats}")
@@ -900,7 +994,7 @@ def phase_pipeline_fused(torch, clip: str, card: str, det11: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.time() - t
     counts = dict(kernels.launches)
-    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1}
+    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS}
     check(counts == want, f"pipeline_fused: launch counts {counts}, expected {want}")
     check(stats["fused_windows"] == N_WINDOWS, f"pipeline_fused: stats {stats}")
     check(stats["accepted"] == det11["accepted"],
@@ -1009,7 +1103,7 @@ def phase_grow(torch, dev, tmp: str, card: str) -> dict:
                          shift + np.array([mh.h_offset, mh.w_offset]))
     check(err_f <= TRAJ_TOL_PX, f"grow: pre-scanned canvas corners off by {err_f:.3f} px")
     warp_equal(frames[1 + n - WINDOW : 1 + n], aux.H_abs[-1], pre[0][0], pre[0][1], "pre-scan")
-    want = {"warp": 2 * N_WINDOWS, "patches": 2 * (N_WINDOWS + 1)}
+    want = {"warp": 2 * N_WINDOWS, "patches": 2 * (N_WINDOWS + 1), "union": 2 * N_WINDOWS}
     check(counts == want, f"grow: launch counts {counts}, expected {want}")
     phase("grow", t0,
           f"drift {GROW_STEP} px a frame; window loop: {accepted}/{n} accepted, canvas "
@@ -1202,7 +1296,7 @@ def phase_navigate(torch, dev, tmp: str, card: str) -> dict:
         peak = torch.cuda.max_memory_allocated()
     finally:
         patches.undo()
-    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1}
+    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS}
     check(counts == want, f"navigate: launch counts {counts}, expected {want}")
     check(m.device.type == "cuda" and m.config.auto_grow, f"navigate: {m.device}, {m.config}")
     check(stats["frames"] == n + 1 and stats["accepted"] >= MIN_ACCEPTED, f"navigate: stats {stats}")
@@ -1311,7 +1405,8 @@ def phase_surface(torch, dev, frames: np.ndarray, m, auxs, tmp: str, card: str) 
     m.warp(frames[n], H)
     warp_ms = (time.perf_counter() - t) * 1e3
     warp_counts = dict(kernels.launches)
-    check(warp_counts == {"warp": 1, "patches": 0}, f"surface: warp launches {warp_counts}")
+    check(warp_counts == {"warp": 1, "patches": 0, "union": 1},
+          f"surface: warp launches {warp_counts}")
     got = (m.state.canvas, m.state.union_coarse)
     check(bool(torch.isfinite(got[0]).all()), "surface: non-finite canvas after warp")
     m.state = saved
@@ -1369,7 +1464,7 @@ def phase_surface(torch, dev, frames: np.ndarray, m, auxs, tmp: str, card: str) 
     torch.cuda.synchronize()
     viz_counts = dict(kernels.launches)
     # the stitch's 3 and 4, and one patch launch for render_matches' two frames
-    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 2}
+    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 2, "union": N_WINDOWS}
     check(viz_counts == want, f"surface: visualize run launches {viz_counts}, expected {want}")
     dims = jpeg_dims(os.path.join(viz, "matches.jpg"))
     check(dims == (FRAME_H, 2 * FRAME_W) and os.listdir(viz) == ["matches.jpg"],
@@ -1556,7 +1651,7 @@ def phase_stream_1080p(torch, dev, card: str) -> tuple:
     first_s = time.time() - t
     counts = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
-    want = {"warp": N_WINDOWS, "patches": 0}
+    want = {"warp": N_WINDOWS, "patches": 0, "union": N_WINDOWS}
     check(counts == want, f"stream_1080p: launch counts {counts}, expected {want}")
     ok = (aux.blended & aux.ok).reshape(n).cpu().numpy()
     check(int(ok.sum()) >= MIN_ACCEPTED, f"stream_1080p: {int(ok.sum())} of {n} frames accepted")
@@ -1838,7 +1933,7 @@ def phase_sift_854(torch, dev, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.time() - t
     counts = dict(kernels.launches)
-    check(counts == {"warp": 1, "patches": 2}, f"sift_854: launch counts {counts}")
+    check(counts == {"warp": 1, "patches": 2, "union": 1}, f"sift_854: launch counts {counts}")
     blended, ok = aux.blended.cpu().numpy(), aux.ok.cpu().numpy()
     accepted = int((blended & ok).sum())
     check(accepted >= WINDOW - 1, f"sift_854: only {accepted} of {WINDOW} frames accepted")
@@ -2579,7 +2674,7 @@ def phase_web(torch, dev, tmp: str, card: str) -> dict:
         srv.shutdown()
         srv.server_close()
         server.join(timeout=30)
-    check(counts == {"warp": 1, "patches": 2}, f"web: launch counts {counts}")
+    check(counts == {"warp": 1, "patches": 2, "union": 1}, f"web: launch counts {counts}")
     img = imdecode(jpg) if status == 200 else None
     check(img is not None and img.ndim == 3, f"web: mosaic.jpg gave {status}")
     running = sorted({f for s, f in states if s == "running"})
@@ -3279,7 +3374,7 @@ def phase_mesh(torch, dev, card: str) -> tuple:
                                              0 if name == "window" else 7))
         got = _sum_launches(ranks)
         n = MESH_RANKS * len(ranks[0]["step_ms"])  # one a rank a window
-        want = {"warp": n, "patches": n if name.endswith("sift") else 0}
+        want = {"warp": n, "patches": n if name.endswith("sift") else 0, "union": n}
         check(got == want, f"mesh: {name}'s launches over the ranks {got}, expected {want}")
         for k in counts:
             counts[k] += got[k]
@@ -3332,7 +3427,8 @@ def phase_mesh_nccl(torch, dev, card: str, want: dict) -> dict:
     for k in ("ok", "H_abs", "canvas", "union_coarse", "kp", "desc", "H_old"):
         check(np.array_equal(got[k], want[k]), f"mesh_nccl: {k} differs from the one-process step")
     counts = _sum_launches([got])
-    check(counts == {"warp": MESH_WINDOWS, "patches": 0}, f"mesh_nccl: launches {counts}")
+    check(counts == {"warp": MESH_WINDOWS, "patches": 0, "union": MESH_WINDOWS},
+          f"mesh_nccl: launches {counts}")
     phase("mesh_nccl", t0, f"1 rank on NCCL, mesh {got['mesh']}: ok {int(got['ok'].sum())}/"
           f"{got['ok'].size}, H_abs and canvas bitwise the one-process step's; step ms (each "
           f"window) {[round(x, 2) for x in got['step_ms']]}, "
@@ -3560,14 +3656,16 @@ def main() -> int:
         hc, wc = 2 * FRAME_H, int(1.2 * FRAME_W)
         phase_warp(torch, dev, frames, hc, wc)
         row_b = phase_patches(torch, dev, frames)
+        row_c = phase_union(torch, dev, regs)
         # SIFT: one warp launch per window; one patch launch per window for
         # all its octaves, plus one for the first frame's features
         sift_counts, sift_auxs, sift_m, sift_fps = phase_window(
-            torch, dev, frames, cam, card, "sift", {"warp": N_WINDOWS, "patches": N_WINDOWS + 1})
+            torch, dev, frames, cam, card, "sift",
+            {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS})
         row_a = warp_real(torch, dev, frames[1 : 1 + WINDOW], sift_auxs[0].H_abs, hc, wc)
         # ORB: one warp launch per window; its patches are uint8 cuts (no kernel)
         orb_counts = phase_window(torch, dev, frames, cam, card, "orb",
-                                  {"warp": N_WINDOWS, "patches": 0})[0]
+                                  {"warp": N_WINDOWS, "patches": 0, "union": N_WINDOWS})[0]
         by_path = {"window": sift_counts, "window_orb": orb_counts}
         det = {}
         for model in DETECT_MODELS:
@@ -3606,10 +3704,10 @@ def main() -> int:
             by_path["mesh_nccl"] = phase_mesh_nccl(torch, dev, card, mesh_orb)
             by_path["weights_pt"] = phase_weights_pt(torch, dev, tmp, frames[1:][DET_FRAMES], card)
         row_a["at_1080p"] = row_a_1080p
-        for row, key in ((row_a, "warp"), (row_b, "patches")):
+        for row, key in ((row_a, "warp"), (row_b, "patches"), (row_c, "union")):
             row["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
             row["launches"] = sum(row["launches_by_path"].values())
-        rows = [row_a, row_b]
+        rows = [row_a, row_b, row_c]
     except CheckFailed as e:
         say(f"FAIL: {e}")
         return 1

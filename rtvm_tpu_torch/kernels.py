@@ -12,8 +12,8 @@ Each C entry point returns ``cudaGetLastError()`` after its launch;
 ``ptxas_summary`` reads each kernel's registers, shared memory and spills
 from it. The wrappers that call
 these entry points live beside their plain PyTorch versions
-(``ops/pallas_warp.py``, ``ops/pallas_patches.py``) and count their launches
-in ``launches``.
+(``ops/pallas_warp.py``, ``ops/pallas_patches.py``, ``ops/warp.py``) and
+count their launches in ``launches``.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("warp.cu", "patches.cu")
+SOURCES = ("warp.cu", "patches.cu", "union.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 # Launch counts, one plain integer per kernel. A wrapper adds one exactly
 # where it launches its kernel; chip_smoke.py zeroes them before driving the
 # main path and reads them after.
-launches = {"warp": 0, "patches": 0}
+launches = {"warp": 0, "patches": 0, "union": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -139,6 +139,9 @@ def library() -> ctypes.CDLL:
             lib.rtvm_warp_bilinear.restype = i
             lib.rtvm_extract_patches_octaves.argtypes = [i, p, i, p, p]
             lib.rtvm_extract_patches_octaves.restype = i
+            f = ctypes.c_float
+            lib.rtvm_union_distance.argtypes = [p, p, p, i, i, i, f, f, f, p]
+            lib.rtvm_union_distance.restype = i
             _lib = lib
         return _lib
 

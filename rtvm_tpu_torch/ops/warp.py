@@ -10,7 +10,8 @@ keeps the mosaic mask as a coarse 4-px occupancy grid with an exact chamfer
 transform, and applies the smoothed weights elementwise. All of it is the same
 here, batched over a leading frame axis where the JAX stitcher vmaps it.
 
-The warp itself is kernel A (``ops/pallas_warp.py``). ``_warp_gather_cm`` is
+The warp itself is kernel A (``ops/pallas_warp.py``); the union distance is
+kernel C (``csrc/union.cu``) for a CUDA tensor. ``_warp_gather_cm`` is
 the JAX package's exact out-of-regime warp, kept as a reference for tests.
 
 The standalone single-frame API of the JAX module is here too:
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rtvm_tpu_torch import kernels
 from rtvm_tpu_torch.ops.filters import gaussian_blur
 from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch
 from rtvm_tpu_torch.ops.sampling import bilinear_sample
@@ -42,7 +44,7 @@ BLEND_SMOOTH_RADIUS = 15
 # A, diagonal steps cost B.
 CHAMFER_A = 0.955
 CHAMFER_B = 1.3693
-UNION_CHUNK_BYTES = 256 << 20  # bound on the [Gh, Gh, Gw] column-combine transient
+UNION_CHUNK_BYTES = 256 << 20  # bound on the plain version's [Gh, Gh, Gw] transient
 
 
 class BlendedCanvas(NamedTuple):
@@ -88,10 +90,12 @@ def _chamfer_row(d: torch.Tensor, dy: float) -> torch.Tensor:
     return CHAMFER_A * (big - sml) + CHAMFER_B * sml
 
 
-def coarse_union_distance(union: torch.Tensor, cell_px: float = float(CELL_PX)) -> torch.Tensor:
+def coarse_union_distance_plain(union: torch.Tensor,
+                                cell_px: float = float(CELL_PX)) -> torch.Tensor:
     """Chamfer distance (px) from each cell of coarse occupancy grids
     union [..., Gh, Gw] (bool) to the nearest empty cell: an exact 1-D row
-    transform by power-of-two min-plus steps, then a broadcast column combine."""
+    transform by power-of-two min-plus steps, then a broadcast column combine
+    (kernel C's plain version)."""
     gh, gw = union.shape[-2], union.shape[-1]
     big = float(4.0 * max(gh, gw))
     d = torch.where(union, torch.full(union.shape, big, device=union.device),
@@ -112,6 +116,34 @@ def coarse_union_distance(union: torch.Tensor, cell_px: float = float(CELL_PX)) 
     out = [torch.amin(_chamfer_pt(flat[s : s + bs, None, :, :], dy), dim=2)
            for s in range(0, flat.shape[0], bs)]
     return (torch.cat(out) * cell_px).reshape(*lead, gh, gw)
+
+
+def coarse_union_distance(union: torch.Tensor, cell_px: float = float(CELL_PX)) -> torch.Tensor:
+    """coarse_union_distance_plain's function: kernel C (``csrc/union.cu``)
+    for a CUDA tensor, bitwise the plain version, one launch for all the
+    grids of union [..., Gh, Gw] (bool or uint8, non-zero = occupied,
+    contiguous); the plain version for a CPU tensor."""
+    if union.dtype not in (torch.bool, torch.uint8):
+        raise TypeError(f"coarse_union_distance wants bool or uint8, got {union.dtype}")
+    if union.dim() < 2:
+        raise ValueError(f"coarse_union_distance wants [..., Gh, Gw], got {tuple(union.shape)}")
+    if not union.is_contiguous():
+        raise ValueError("coarse_union_distance wants a contiguous grid")
+    if union.device.type == "cpu":
+        return coarse_union_distance_plain(union.to(torch.bool), cell_px)
+    if union.device.type != "cuda":
+        raise ValueError(f"coarse_union_distance: no kernel for device {union.device}")
+    gh, gw = union.shape[-2], union.shape[-1]
+    out = torch.empty(union.shape, dtype=torch.float32, device=union.device)
+    if out.numel() == 0:
+        return out
+    scratch = torch.empty_like(out)
+    code = kernels.library().rtvm_union_distance(
+        union.data_ptr(), scratch.data_ptr(), out.data_ptr(), out.numel() // (gh * gw), gh, gw,
+        CHAMFER_A, CHAMFER_B, cell_px, kernels.stream_handle(union.device))
+    kernels.check(code, "rtvm_union_distance")
+    kernels.launches["union"] += 1
+    return out
 
 
 def _seg_dist(px, py, x0, y0, x1, y1, valid):
