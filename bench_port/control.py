@@ -10,9 +10,10 @@ Each is a whole run of the cell (``lib/harness.py:run_cell``, a window of
 is), one after another in one process:
 - ``tf32``: the program's float32 products in TF32 (the port turns TF32
   off; one precision below the configuration's float32 for the stitch);
-- ``fp8``: the reference YOLO with every convolution's input and weight in
+- ``fp8``: the configuration's reference model (``reference``, default
+  ``reference/yolo.py``) with every convolution's input and weight in
   float8 (e4m3; one precision below the configuration's bf16) in the place
-  of the program's model;
+  of the head logits of the detector's class;
 - a fault of ``lib/faults.py`` planted under the timed path.
 Prints one JSON line a run: whether it came out correct, and each number
 compared with its limit.

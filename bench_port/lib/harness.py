@@ -1,8 +1,31 @@
 """One run of a cell: set-up, the window, the traced reduction, and the
-check against the plain references after the window has closed."""
+check against the plain references after the window has closed.
+
+What is particular to a model comes from the configuration's ``yolo``
+block, each key optional; the detector is always the port's
+``ObjectDetector`` of the configuration's ``variant``:
+
+- ``reference``: a module of ``bench_port/reference/`` (default ``yolo``)
+  with ``load(checkpoint_path, cfg, device, fp8=False) -> weights``,
+  ``heads(weights, cfg, frames, imgsz) -> ((box, cls), (scale, pad_y,
+  pad_x))`` with its own letterbox, ``detect(weights, cfg, frames, imgsz,
+  conf, iou) -> (per-frame [{"box", "score", "cls"}], (box, cls))``,
+  ``flops(cfg, hw)``, the model FLOPs of a frame at the letterboxed hw,
+  and ``draw(cfg, seed, frames, imgsz) -> {leaf path: float32 array}``, a
+  checkpoint drawn from the seed.
+- ``weights``: a bundled checkpoint (``.npz``, its class names in the json
+  beside it), or ``"seeded"``: the reference's ``draw`` from ``--seed`` on
+  frames of the traffic, written by ``lib/weights.py`` under TMPDIR and
+  loaded by both sides as a bundled one, with the names ``classes`` (or
+  ``class_0`` ...).
+
+The detector must load the checkpoint and name ``nc`` classes, or the run
+raises.
+"""
 
 from __future__ import annotations
 
+import importlib
 import json
 import time
 from pathlib import Path
@@ -11,10 +34,10 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from bench_port.lib import check, entries, faults, trace, traffic
-from bench_port.reference import yolo as ref_yolo
+from bench_port.lib import check, entries, faults, trace, traffic, weights as seeded
 
 ROOT = Path(__file__).resolve().parent.parent.parent
+CALIB_FRAMES = 8  # frames of the orbit, evenly spaced, that a seeded draw calibrates on
 
 
 class Run:
@@ -52,22 +75,32 @@ def set_tf32(on: bool) -> None:
     torch.backends.cudnn.allow_tf32 = on
 
 
-def fp8_head_logits(weights: str, yc: Dict, dev):
-    """The detection's control: the reference YOLO, every convolution's
+def reference_of(yc: Dict):
+    """The configuration's reference module under bench_port/reference/."""
+    return importlib.import_module(f"bench_port.reference.{yc.get('reference', 'yolo')}")
+
+
+def build_detector(yc: Dict, weights_path: str, dev):
+    """The port's detector of the configuration's variant on the checkpoint."""
+    from rtvm_tpu_torch.detect.detector import ObjectDetector
+
+    return ObjectDetector(model=yc["variant"], load_world=False, weights_path=weights_path,
+                          device=dev)
+
+
+def fp8_head_logits(ref, weights: str, yc: Dict, dev):
+    """The detection's control: the reference model, every convolution's
     input and weight in float8 (e4m3), with the reference's letterbox, as
-    ``ObjectDetector.head_logits`` (the program decodes and runs its NMS on
+    the detector's ``head_logits`` (the program decodes and runs its NMS on
     what it returns)."""
-    w8 = ref_yolo.Weights(ref_yolo.read_npz(weights), dev, fp8=True)
+    w8 = ref.load(weights, yc, dev, fp8=True)
 
     def head_logits(self, frames_u8, imgsz, dtype=torch.bfloat16):
-        frames = self._frames(frames_u8)
-        parts = []
-        for i in range(0, len(frames), check.DET_BLOCK):  # in blocks, beside the port's state
-            x, scale, py, px = ref_yolo.letterbox(frames[i : i + check.DET_BLOCK], imgsz)
-            with torch.no_grad():
-                parts.append(ref_yolo.heads(w8, yc, x))
-        box, cls = ([torch.cat(t) for t in zip(*(p[k] for p in parts))] for k in (0, 1))
-        return (box, cls), (scale, py, px)
+        frames = torch.as_tensor(frames_u8).to(device=dev, dtype=torch.uint8)
+        parts = [ref.heads(w8, yc, frames[i : i + check.DET_BLOCK], imgsz)  # in blocks, beside
+                 for i in range(0, len(frames), check.DET_BLOCK)]  # the port's state
+        box, cls = ([torch.cat(t) for t in zip(*(p[0][k] for p in parts))] for k in (0, 1))
+        return (box, cls), parts[-1][1]
 
     return head_logits
 
@@ -79,33 +112,52 @@ def run_cell(spec: Dict, seed: int, seconds: float, traced: bool, device: str, t
              read_metric, metrics_of, control: Optional[str] = None) -> Dict:
     """One run. ``control`` (``control.py``) puts one precision below the
     configuration's in the program's place: ``"tf32"``, the program computes
-    its float32 products in TF32; ``"fp8"``, the reference YOLO in float8
-    stands in for the program's bf16 model. The references never do either."""
-    from rtvm_tpu_torch.detect.detector import ObjectDetector
-
+    its float32 products in TF32; ``"fp8"``, the reference model in float8
+    stands in for the program's bf16 model. The references never do either.
+    What the run wrote (a seeded checkpoint, an export's files) is deleted
+    at its end."""
     if control not in (None,) + CONTROLS:
         raise ValueError(f"no control {control!r}")
     dev = torch.device(device)
     set_tf32(control == "tf32")
-    cfg, mix, cell = spec["config"], spec["mix"], spec["cell"]
-    name = spec["workload"]["name"]
-    yc = cfg["yolo"]
+    cfg, mix = spec["config"], spec["mix"]
     frame_hw = tuple(cfg["stitch"]["frame_hw"])
     tracer = trace.Tracer(traced, mix["trace_wait"], mix["trace_active"])
     run = Run(spec, seed, seconds, dev, tracer, t_start)
-    run.orbit = traffic.make_orbit(seed, frame_hw, dict(mix, window_size=cfg["stitch"]["window_size"]))
-    weights = str(ROOT / yc["weights"])
-    run.detector = ObjectDetector(model=yc["variant"], weights_path=weights, load_world=False,
-                                  device=dev)
+    try:
+        return _run(run, spec, traced, control, read_metric, metrics_of)
+    finally:
+        for f in run.cleanup:
+            f()
+
+
+def _run(run: Run, spec: Dict, traced: bool, control: Optional[str], read_metric,
+         metrics_of) -> Dict:
+    cfg, mix, cell = spec["config"], spec["mix"], spec["cell"]
+    name = spec["workload"]["name"]
+    dev, tracer, yc = run.device, run.tracer, cfg["yolo"]
+    frame_hw = tuple(cfg["stitch"]["frame_hw"])
+    run.orbit = traffic.make_orbit(run.seed, frame_hw,
+                                   dict(mix, window_size=cfg["stitch"]["window_size"]))
+    ref = reference_of(yc)
+    if yc["weights"] == "seeded":
+        frames = run.orbit["frames"]
+        calib = torch.from_numpy(frames[:: max(1, len(frames) // CALIB_FRAMES)][:CALIB_FRAMES])
+        weights, remove = seeded.seeded_checkpoint(ref, yc, run.seed, calib.to(dev),
+                                                   _imgsz(yc))
+        run.cleanup.append(remove)
+    else:
+        weights = str(ROOT / yc["weights"])
+    run.detector = build_detector(yc, weights, dev)
     classes = json.loads(Path(weights[: -len(".npz")] + ".json").read_text())["classes"]
-    if not run.detector.weights_loaded or len(run.detector.class_names) != cfg["yolo"]["nc"]:
-        raise RuntimeError(f"{weights}: not loaded, or not {cfg['yolo']['nc']} classes")
+    if not run.detector.weights_loaded or len(run.detector.class_names) != yc["nc"]:
+        raise RuntimeError(f"{weights}: not loaded, or not {yc['nc']} classes")
 
     patch_calls: List = []
     undo = []
     if control == "fp8":
         patch = faults.Patch()
-        patch.setattr(ObjectDetector, "head_logits", fp8_head_logits(weights, yc, dev))
+        patch.setattr(type(run.detector), "head_logits", fp8_head_logits(ref, weights, yc, dev))
         undo.append(patch.undo)
     if traced and cfg["stitch"]["features"] == "sift":
         from rtvm_tpu_torch.ops.features import sift
@@ -137,7 +189,7 @@ def run_cell(spec: Dict, seed: int, seconds: float, traced: bool, device: str, t
     else:
         red = trace.reduce_events(tracer.events or [])
         untraced = tracer.untraced_rate(out["frames_per_detect_call"])
-        ctx = {"red": red, "trace": trace, "out": out, "config": cfg, "mix": mix,
+        ctx = {"red": red, "trace": trace, "out": out, "config": cfg, "mix": mix, "reference": ref,
                "frames_per_s": untraced or frames_per_s, "frame_hw": frame_hw,
                "patch_calls": patch_calls}
         for m in metrics_of(spec["bench"], name, "per_layer"):
@@ -156,9 +208,7 @@ def run_cell(spec: Dict, seed: int, seconds: float, traced: bool, device: str, t
     tracer.events = None
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    numbers = check_outputs(run, out, canvas_prog, classes, frame_hw, dev, weights)
-    for f in run.cleanup:
-        f()
+    numbers = check_outputs(run, out, canvas_prog, classes, frame_hw, dev, ref, weights)
     limits = cell["limits"]
     checks = {k: {"value": numbers[k], "limit": limits[k]} for k in limits}
     correct = all(np.isfinite(c["value"]) and c["value"] <= c["limit"] for c in checks.values())
@@ -171,8 +221,12 @@ def run_cell(spec: Dict, seed: int, seconds: float, traced: bool, device: str, t
     return res
 
 
+def _imgsz(yc: Dict):
+    return yc["imgsz"] if isinstance(yc["imgsz"], int) else tuple(yc["imgsz"])
+
+
 def check_outputs(run: Run, out: Dict, canvas_prog: torch.Tensor, classes: List[str],
-                  frame_hw, dev, weights: str) -> Dict:
+                  frame_hw, dev, ref, weights: str) -> Dict:
     cfg = run.config
     st = cfg["stitch"]
     hc, wc = out["canvas_hw"]
@@ -193,14 +247,14 @@ def check_outputs(run: Run, out: Dict, canvas_prog: torch.Tensor, classes: List[
     n = min(check.DET_FRAMES, len(kept))
     sample = sorted(rng.choice(kept, size=n, replace=False).tolist()) if n else []
     yc = cfg["yolo"]
-    w = ref_yolo.Weights(ref_yolo.read_npz(weights), dev)
-    imgsz = yc["imgsz"] if isinstance(yc["imgsz"], int) else tuple(yc["imgsz"])
+    w = ref.load(weights, yc, dev)
+    imgsz = _imgsz(yc)
     ref_dets, ref_heads = [], []
     frames = run.orbit["frames"]
     for i in range(0, len(sample), check.DET_BLOCK):
         ks = sample[i : i + check.DET_BLOCK]
         fr = torch.from_numpy(frames[[k % run.orbit["period"] for k in ks]]).to(dev)
-        dets, (box, cls) = ref_yolo.detect(w, yc, fr, imgsz, yc["conf"], yc["iou"])
+        dets, (box, cls) = ref.detect(w, yc, fr, imgsz, yc["conf"], yc["iou"])
         for j in range(len(ks)):
             ref_heads.append(torch.cat([t[j].flatten() for t in box + cls]))
             ref_dets.append([{"box": d["box"], "cls": classes[d["cls"]]} for d in dets[j]])

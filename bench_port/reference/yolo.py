@@ -31,6 +31,16 @@ import torch.nn.functional as F
 BN_EPS = 1e-3
 PAD_VALUE = 0.447  # the letterbox's fill, in 0..1
 MAX_DET = 300
+# draw: the seeded model's BatchNorm scale, its bottleneck branches' share,
+# its class and box heads' spreads of logits, its box bias's fall a DFL bin,
+# and the candidates a frame that reach CALIB_CONF
+BN_GAIN = 0.25
+BRANCH_GAIN = 0.3
+HEAD_STD = 1.0
+BOX_STD = 0.25
+BOX_SLOPE = 0.4
+CANDIDATES = 16
+CALIB_CONF = 0.25
 
 
 # ------------------------------------------------------------------ weights
@@ -129,7 +139,7 @@ def _up(x):
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
-def heads(w: Weights, cfg: dict, x: torch.Tensor) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+def forward(w: Weights, cfg: dict, x: torch.Tensor) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """x [B, 3, H, W] RGB in 0..1 -> (box logits, class logits), one NCHW
     tensor per stride, as ``yolov8.yaml`` wires the layers."""
     d = lambda n: repeats(cfg, n)  # noqa: E731
@@ -155,6 +165,185 @@ def heads(w: Weights, cfg: dict, x: torch.Tensor) -> Tuple[List[torch.Tensor], L
         c = w.cbs(w.cbs(f, f"{h}/ConvBnSiLU_{4 * i + 2}"), f"{h}/ConvBnSiLU_{4 * i + 3}")
         cls.append(w.conv(c, f"{h}/Conv_{2 * i + 1}", bias=True))
     return box, cls
+
+
+def layers(cfg: dict, hw: Tuple[int, int] = (640, 640)) -> List[tuple]:
+    """Every convolution of the model at the letterboxed input hw (rows,
+    cols), in the order ``forward`` runs them: (module path, c_in, c_out,
+    kernel side, rows out, cols out, with BatchNorm). A module with
+    BatchNorm is a ConvBnSiLU (``{path}/Conv_0`` without a bias,
+    ``{path}/BatchNorm_0``); one without is a head's last convolution, with
+    a bias."""
+    ch, d = channels(cfg), lambda n: repeats(cfg, n)  # noqa: E731
+    out: List[tuple] = []
+
+    def conv(path, c_in, c_out, h, w, k=1, s=1, bn=True):
+        ho, wo = (h + 2 * (k // 2) - k) // s + 1, (w + 2 * (k // 2) - k) // s + 1
+        out.append((path, c_in, c_out, k, ho, wo, bn))
+        return c_out, ho, wo
+
+    def c2f(path, c_in, c_out, h, w, n):
+        hid = c_out // 2
+        conv(f"{path}/ConvBnSiLU_0", c_in, 2 * hid, h, w)
+        for i in range(n):
+            conv(f"{path}/Bottleneck_{i}/ConvBnSiLU_0", hid, hid, h, w, 3)
+            conv(f"{path}/Bottleneck_{i}/ConvBnSiLU_1", hid, hid, h, w, 3)
+        return conv(f"{path}/ConvBnSiLU_1", (2 + n) * hid, c_out, h, w)
+
+    h, w = hw
+    c, h, w = conv("ConvBnSiLU_0", 3, ch[64], h, w, 3, 2)
+    c, h, w = conv("ConvBnSiLU_1", c, ch[128], h, w, 3, 2)
+    c, h, w = c2f("C2f_0", c, ch[128], h, w, d(3))
+    c, h, w = conv("ConvBnSiLU_2", c, ch[256], h, w, 3, 2)
+    p3 = c2f("C2f_1", c, ch[256], h, w, d(6))
+    c, h, w = conv("ConvBnSiLU_3", p3[0], ch[512], p3[1], p3[2], 3, 2)
+    p4 = c2f("C2f_2", c, ch[512], h, w, d(6))
+    c, h, w = conv("ConvBnSiLU_4", p4[0], ch[1024], p4[1], p4[2], 3, 2)
+    c, h, w = c2f("C2f_3", c, ch[1024], h, w, d(3))
+    conv("SPPF_0/ConvBnSiLU_0", c, c // 2, h, w)
+    p5 = conv("SPPF_0/ConvBnSiLU_1", 4 * (c // 2), ch[1024], h, w)
+    n4 = c2f("C2f_4", p5[0] + p4[0], ch[512], p4[1], p4[2], d(3))
+    n3 = c2f("C2f_5", n4[0] + p3[0], ch[256], p3[1], p3[2], d(3))
+    c, h, w = conv("ConvBnSiLU_5", n3[0], ch[256], n3[1], n3[2], 3, 2)
+    m4 = c2f("C2f_6", c + n4[0], ch[512], h, w, d(3))
+    c, h, w = conv("ConvBnSiLU_6", m4[0], ch[512], m4[1], m4[2], 3, 2)
+    m5 = c2f("C2f_7", c + p5[0], ch[1024], h, w, d(3))
+    c2 = max(16, n3[0] // 4, cfg["reg_max"] * 4)
+    c3 = max(n3[0], min(cfg["nc"], 100))
+    for i, (f, fh, fw) in enumerate((n3, m4, m5)):
+        p = "DetectHead_0"
+        conv(f"{p}/ConvBnSiLU_{4 * i}", f, c2, fh, fw, 3)
+        conv(f"{p}/ConvBnSiLU_{4 * i + 1}", c2, c2, fh, fw, 3)
+        conv(f"{p}/Conv_{2 * i}", c2, 4 * cfg["reg_max"], fh, fw, bn=False)
+        conv(f"{p}/ConvBnSiLU_{4 * i + 2}", f, c3, fh, fw, 3)
+        conv(f"{p}/ConvBnSiLU_{4 * i + 3}", c3, c3, fh, fw, 3)
+        conv(f"{p}/Conv_{2 * i + 1}", c3, cfg["nc"], fh, fw, bn=False)
+    return out
+
+
+# ---------------------------------------------------------------- interface
+
+
+def load(checkpoint_path: str, cfg: dict, device, fp8: bool = False) -> Weights:
+    """The checkpoint's weights on `device`; with fp8, for the control."""
+    return Weights(read_npz(checkpoint_path), device, fp8=fp8)
+
+
+def heads(w: Weights, cfg: dict, frames_bgr: torch.Tensor, imgsz):
+    """Frames [B, H, W, 3] BGR uint8 -> ((box logits, class logits), (scale,
+    pad_y, pad_x)), through the reference's own letterbox."""
+    x, scale, py, px = letterbox(frames_bgr, imgsz)
+    with torch.no_grad():
+        return forward(w, cfg, x), (scale, py, px)
+
+
+def flops(cfg: dict, hw: Tuple[int, int]) -> float:
+    """Model FLOPs of one frame at the letterboxed input hw (rows, cols): 2 x
+    the multiply-adds of every convolution, as Ultralytics counts its
+    GFLOPs."""
+    return 2.0 * sum(co * ci * k * k * ho * wo for _, ci, co, k, ho, wo, _ in layers(cfg, hw))
+
+
+class _Calibrating(Weights):
+    """Weights whose every BatchNorm takes its statistics from its input on
+    the way through, keeping them: the mean, and for the variance the mean
+    square, at least the median channel's, so that no channel is scaled up
+    beyond its own magnitude or the layer's typical one."""
+
+    def cbs(self, x, path: str, stride: int = 1, act: bool = True):
+        y = self.conv(x, f"{path}/Conv_0", stride)
+        p = f"batch_stats/{path}/BatchNorm_0"
+        ms = y.square().mean((0, 2, 3))
+        self.t[f"{p}/mean"] = y.mean((0, 2, 3))
+        self.t[f"{p}/var"] = torch.maximum(ms, ms.median())
+        return super().cbs(x, path, stride, act)
+
+
+def draw(cfg: dict, seed: int, frames_bgr: torch.Tensor, imgsz) -> Dict[str, np.ndarray]:
+    """{leaf path: float32 array} of a checkpoint drawn from `seed` on the
+    device of `frames_bgr`, named and shaped as the bundled ones: a random
+    model whose logits vary over the traffic as a trained one's do.
+
+    Every convolution's weight is uniform in +-1/sqrt(fan_in), PyTorch's
+    default and so Ultralytics' initialisation: one draw from a
+    ``torch.Generator`` on that device, carved into the kernels in the
+    order ``layers`` lists them. Then, unlike a fresh model, one pass in
+    float32 over `frames_bgr` (frames of the traffic) letterboxed to imgsz
+    sets the rest (``_Calibrating``; PERF.md gives the readings):
+    - each BatchNorm (epsilon 1e-3, shift 0) takes its input's mean and
+      mean square as its statistics, the mean square at least the layer's
+      median channel's, and the scale BN_GAIN (BRANCH_GAIN x BN_GAIN at the
+      last convolution of a bottleneck). A channel all but silent on the
+      pass would otherwise scale up, on frames that the pass did not see,
+      bf16's rounding many times over (a head's logits 6% apart). With a fresh
+      model's statistics (mean 0, variance 1) every activation vanishes by
+      the third C2f and every logit equals its bias: all anchors tie and
+      no comparison could fail. At scale 1 the random net is chaotic (bf16
+      and float32 logits some 30% apart); at BN_GAIN each SiLU stays near
+      its linear range, and the small bottleneck branches keep rounding
+      from piling up with depth, so on most frames bf16 reads about as a
+      trained checkpoint does (not on every stretch of an orbit: PERF.md);
+    - each stride's last two convolutions are scaled so that their logits
+      spread by HEAD_STD (classes) and BOX_STD (boxes) over the pass;
+    - the box bias falls from ``Detect.bias_init``'s 1.0 by BOX_SLOPE a DFL
+      bin, so that boxes are a few strides wide, as aerial objects are:
+      with the flat 1.0 every box spans some 15 strides, and a box moved
+      by 8 px still overlaps its place by more than the check's IoU 0.9.
+      The box logits' spread is small beside that fall, so each side's
+      bins stay one smooth slope: with a spread of 1.0 two far bins can
+      tie, and bf16's rounding moves the box by strides;
+    - the class bias, one number for every class and stride, is
+      logit(CALIB_CONF) minus the least, over the frames, of each frame's
+      quantile of the anchors' best class logit that leaves CANDIDATES
+      anchors at or above CALIB_CONF: every frame of the pass keeps
+      CANDIDATES or more (one quantile over all the frames put them in a
+      few frames and left others none); a dense frame keeps some hundreds,
+      up to the cap of MAX_DET.
+      ``bias_init``'s prior log(5 / nc / (640 / stride)^2) would leave
+      every score far under ``conf``."""
+    dev = frames_bgr.device
+    specs = layers(cfg)
+    sizes = [k * k * ci * co for _, ci, co, k, _, _, _ in specs]
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    u = torch.rand(sum(sizes), generator=gen, device=dev).mul_(2).sub_(1)
+    t: Dict[str, torch.Tensor] = {}
+    at = 0
+    for (path, ci, co, k, _, _, bn), n in zip(specs, sizes):
+        kernel = u[at : at + n].reshape(k, k, ci, co) / math.sqrt(ci * k * k)  # HWIO
+        at += n
+        if not bn:  # a head's last convolution; its bias is set below
+            t[f"params/{path}/kernel"] = kernel
+            t[f"params/{path}/bias"] = torch.zeros(co, device=dev)
+            continue
+        t[f"params/{path}/Conv_0/kernel"] = kernel
+        gain = BN_GAIN * (BRANCH_GAIN if "Bottleneck" in path and path.endswith("_1") else 1.0)
+        t[f"params/{path}/BatchNorm_0/scale"] = torch.full((co,), gain, device=dev)
+        t[f"params/{path}/BatchNorm_0/bias"] = torch.zeros(co, device=dev)
+    del u
+    w = _Calibrating({}, dev)
+    w.t = t
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            box, cls = forward(w, cfg, letterbox(frames_bgr, imgsz)[0])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    best = []
+    for i, (b, c) in enumerate(zip(box, cls)):
+        for j, out, std in ((2 * i, b, BOX_STD), (2 * i + 1, c, HEAD_STD)):
+            t[f"params/DetectHead_0/Conv_{j}/kernel"] *= std / float(out.std())
+        best.append((c * (HEAD_STD / float(c.std()))).amax(1).flatten(1))
+    best = torch.cat(best, 1)  # [frames, anchors]: each anchor's best class logit
+    # the least over the frames of each frame's quantile: every frame keeps
+    # CANDIDATES anchors or more
+    top = float(torch.quantile(best, 1.0 - CANDIDATES / best.shape[1], dim=1).min())
+    for i in range(3):
+        bins = torch.arange(cfg["reg_max"], device=dev, dtype=torch.float32)
+        t[f"params/DetectHead_0/Conv_{2 * i}/bias"] = (1.0 - BOX_SLOPE * bins).repeat(4)
+        t[f"params/DetectHead_0/Conv_{2 * i + 1}/bias"] = torch.full(
+            (cfg["nc"],), math.log(CALIB_CONF / (1 - CALIB_CONF)) - top, device=dev)
+    return {k: v.cpu().numpy() for k, v in t.items()}
 
 
 # ------------------------------------------------------- letterbox, decode, NMS
@@ -257,7 +446,7 @@ def detect(w: Weights, cfg: dict, frames_bgr: torch.Tensor, imgsz, conf: float, 
     pixels, (box logits, class logits))."""
     x, scale, py, px = letterbox(frames_bgr, imgsz)
     with torch.no_grad():
-        box, cls = heads(w, cfg, x)
+        box, cls = forward(w, cfg, x)
         boxes, scores = decode(box, cls, cfg["reg_max"])
     boxes = boxes.cpu().numpy().astype(np.float64)
     boxes[..., 0::2] -= px

@@ -6,8 +6,9 @@
 Run from the root of a checkout on a machine with a CUDA card. The cell is
 an entry of ``workloads`` in ``BENCHMARK.json``; its configuration, traffic
 mix and limits are files under ``bench_port/`` found by name (README.md).
-Set-up makes the orbit's frames from the seed, loads the bundled YOLO
-checkpoint and runs the mix's entry once on the cell's shapes; the window
+Set-up makes the orbit's frames from the seed, loads the configuration's
+YOLO checkpoint (bundled, or drawn from the seed and written under TMPDIR)
+and runs the mix's entry once on the cell's shapes; the window
 then runs the entry for ``--seconds`` on the host clock, ending after
 ``torch.cuda.synchronize()``. With ``--trace 1`` the same run carries
 ``torch.profiler`` over a few steps and reports the per-layer metrics

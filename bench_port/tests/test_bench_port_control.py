@@ -12,15 +12,19 @@ import pytest
 
 import bench_port.run as bench_run
 from bench_port.lib.harness import CONTROLS, run_cell
-from bench_port.tests.test_bench_port_faults import LIVE, run, tiny_spec
+from bench_port.tests.test_bench_port_faults import LIVE, SEEDED, run, spec_of
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in BENCH["workloads"]]
 
 
-def test_fp8_control_fails_on_the_cpu(monkeypatch):
-    res = run(tiny_spec(LIVE), monkeypatch, control="fp8")
+@pytest.mark.parametrize("cell", [LIVE, SEEDED])
+def test_fp8_control_fails_on_the_cpu(cell, monkeypatch):
+    """The live cell's bundled YOLOv8n, and the fused cell with weights
+    drawn from the seed: the fp8 reference stands in for the detector's
+    head logits."""
+    res = run(spec_of(cell), monkeypatch, control="fp8")
     assert res["correct"] is False
     assert res["checks"]["head_rms"]["value"] > res["checks"]["head_rms"]["limit"]
 

@@ -5,12 +5,13 @@ card, with a fault planted under the entry. Each fault has to turn
 
 import copy
 import time
+from pathlib import Path
 
 import pytest
 import torch
 
 import bench_port.run as bench_run
-from bench_port.lib import check
+from bench_port.lib import check, entries
 from bench_port.lib.faults import FAULTS, Patch
 from bench_port.lib.harness import run_cell
 
@@ -30,6 +31,18 @@ def tiny_spec(cell):
     return spec
 
 
+def seeded_spec():
+    """The fused cell at tiny_spec's size with weights drawn from the seed
+    (80 classes, class_0 ...), its reference named."""
+    spec = tiny_spec(FUSED)
+    spec["config"]["yolo"].update(weights="seeded", nc=80, reference="yolo")
+    return spec
+
+
+def spec_of(cell):
+    return seeded_spec() if cell == SEEDED else tiny_spec(cell)
+
+
 def run(spec, monkeypatch, **kw):
     torch.set_num_threads(2)
     monkeypatch.setattr(check, "DET_FRAMES", 3)
@@ -39,12 +52,15 @@ def run(spec, monkeypatch, **kw):
 
 
 LIVE, FUSED = "sift360-yolov8n.live", "orb1080-yolov8l.fused"
+SEEDED = "seeded"  # seeded_spec(), no cell
 CASES = [  # (fault, cell, the numbers it has to break)
     ("state_unchanged", LIVE, ("canvas_gap",)),
     ("half_batch", LIVE, ("head_rms", "det_unmatched")),
     ("boxes_altered", LIVE, ("det_unmatched",)),
     ("homography_altered", LIVE, ("h_step_p99_px",)),
     ("homography_altered", FUSED, ("h_step_p99_px",)),
+    ("half_batch", SEEDED, ("head_rms",)),
+    ("boxes_altered", SEEDED, ("det_unmatched",)),
 ]
 ON_THE_CARD = [  # (fault, cell): read at the cell's own size on three seeds
     ("homography_altered", LIVE),
@@ -54,11 +70,39 @@ ON_THE_CARD = [  # (fault, cell): read at the cell's own size on three seeds
 @pytest.mark.parametrize("fault, cell, numbers", CASES, ids=[f"{f}-{c}" for f, c, _ in CASES])
 def test_a_fault_turns_correct_false(fault, cell, numbers, monkeypatch):
     FAULTS[fault](monkeypatch)
-    res = run(tiny_spec(cell), monkeypatch)
+    if (fault, cell) == ("half_batch", SEEDED):
+        # one detection call fits the window here: keep its last frame, in
+        # the half of the batch that half_batch alters
+        monkeypatch.setattr(entries, "_capture_rule", lambda seed, call, share, n: n - 1)
+    res = run(spec_of(cell), monkeypatch)
     assert res["correct"] is False
     for n in numbers:
         c = res["checks"][n]
         assert c["value"] > c["limit"], (n, c)
+    if cell == SEEDED:  # detections on both sides: the comparison had something to compare
+        assert res["info"]["detections_ref"] > 0 and res["info"]["detections_prog"] > 0
+
+
+def test_a_seeded_configuration_runs_correct(monkeypatch):
+    """Weights drawn from the seed, written as a checkpoint, loaded by the
+    port's ObjectDetector and read by the reference: correct under the
+    fused cell's limits, with detections on both sides, and the checkpoint
+    gone after the run."""
+    import bench_port.lib.weights as seeded
+
+    made = []
+    orig = seeded.seeded_checkpoint
+
+    def spy(*a, **kw):
+        path, remove = orig(*a, **kw)
+        made.append(path)
+        return path, remove
+
+    monkeypatch.setattr(seeded, "seeded_checkpoint", spy)
+    res = run(seeded_spec(), monkeypatch)
+    assert res["correct"] is True, res["checks"]
+    assert res["info"]["detections_ref"] > 0 and res["info"]["detections_prog"] > 0
+    assert len(made) == 1 and not Path(made[0]).exists()
 
 
 @pytest.mark.card

@@ -1,6 +1,7 @@
 """BENCHMARK.json and the files it names: found by name, and within the
 benchmark contract's rules for names, units and keys."""
 
+import importlib
 import json
 import re
 from pathlib import Path
@@ -13,6 +14,11 @@ BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
 CELLS = [w["name"] for w in BENCH["workloads"]]
+CONFIGS = [c["file"] for c in BENCH["configs"]]
+YOLO_KEYS = {"variant", "depth_multiple", "width_multiple", "max_channels", "nc", "reg_max",
+             "weights", "imgsz", "conf", "iou", "dtype"}
+OPTIONAL = {"reference", "classes"}  # lib/harness.py
+INTERFACE = ("load", "heads", "detect", "flops", "draw")
 
 
 def test_top_level_keys():
@@ -89,3 +95,25 @@ def test_metric_cells():
         for r in per:
             if "_roofline" in r["name"]:
                 assert any("mfu" in m["name"] and m["moves"] == r["moves"] for m in per)
+
+
+@pytest.mark.parametrize("file", CONFIGS)
+def test_a_configurations_model_keys(file):
+    """The ``yolo`` block: the model's sizes, and the optional keys that
+    name its reference and its weights (lib/harness.py)."""
+    yc = json.loads((ROOT / file).read_text())["yolo"]
+    assert YOLO_KEYS <= set(yc) and set(yc) <= YOLO_KEYS | OPTIONAL
+    assert NAME.match(yc.get("reference", "yolo"))
+    assert (HERE / "reference" / f"{yc.get('reference', 'yolo')}.py").is_file()
+    if yc["weights"] == "seeded":
+        assert len(yc.get("classes", range(yc["nc"]))) == yc["nc"]
+    else:
+        assert yc["weights"].endswith(".npz") and "classes" not in yc
+        assert (ROOT / yc["weights"][: -len(".npz")]).with_suffix(".json").is_file()
+
+
+@pytest.mark.parametrize("name", sorted({json.loads((ROOT / f).read_text())["yolo"]
+                                         .get("reference", "yolo") for f in CONFIGS}))
+def test_a_named_reference_has_the_interface(name):
+    mod = importlib.import_module(f"bench_port.reference.{name}")
+    assert all(callable(getattr(mod, f, None)) for f in INTERFACE)

