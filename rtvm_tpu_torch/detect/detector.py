@@ -1,5 +1,7 @@
 """Object detection (counterpart of ``rtvm_tpu/detect/detector.py``): the
-closed-set YOLO detector with its checkpoint search and batched inference,
+YOLO detector (closed-set YOLOv8 and YOLO11, and YOLOv8-Worldv2 over the
+vocabulary its checkpoint embeds) with its checkpoint search and batched
+inference,
 the open-vocabulary companion (``models/yolo/world.py``) that
 ``load_world=True`` loads, the person pass, and ``detect_objects``, the
 multi-pass detection on the mosaic.
@@ -72,7 +74,13 @@ def tile_starts(dim: int, win: int = 640, stride: int = 400) -> List[int]:
 
 
 class ObjectDetector:
-    """YOLOv8/YOLO11 detector on ``device`` (``cuda`` unless given).
+    """YOLOv8/YOLO11/YOLOv8-Worldv2 detector on ``device`` (``cuda`` unless
+    given). ``model`` names a variant of ``models/yolo/model.py``:
+    ``yolov8{n,s,m,l,x}``, ``yolo11{n,s,m,l,x}`` or
+    ``yolov8{n,s,m,l,x}-worldv2``, whose checkpoint holds the vocabulary's
+    text embeddings (``txt_feats``, one row a class of its json): its class
+    logits are scores against those names, and every path here runs it as
+    the closed-set models.
 
     Weights, in the JAX class's order: the Flax checkpoint ``weights_path``
     if it is an ``.npz``, else ``{model}_aerial.npz`` found in ``.``,

@@ -8,8 +8,11 @@ convolution's ``kernel`` is renamed ``weight`` and moved from Flax's HWIO to
 PyTorch's OIHW (a depthwise ``(kh, kw, 1, C)`` becomes ``(C, 1, kh, kw)``),
 a ``Dense`` kernel from ``(in, out)`` to ``nn.Linear``'s ``(out, in)``.
 BatchNorm's ``scale``, ``bias``, ``mean`` and ``var``, an ``Embed``'s
-``embedding`` (``[V, D]``) and the open-vocabulary head's 0-dim
-``logit_scale`` and ``logit_bias`` keep their names and shapes.
+``embedding`` (``[V, D]``), the open-vocabulary head's 0-dim
+``logit_scale`` and ``logit_bias``, and YOLOv8-Worldv2's text embeddings
+``params/txt_feats`` (``[K, 512]``, the buffer ``txt_feats``), attention
+``bias`` (``[heads]``) and contrastive heads' ``bias`` (``[1]``) and 0-dim
+``logit_scale`` keep their names and shapes.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from rtvm_tpu_torch.models.yolo.model import YOLOv8, YoloConfig
+from rtvm_tpu_torch.models.yolo.model import VARIANTS_WORLDV2, YOLOv8, YOLOWorldV2, YoloConfig
 
 COLLECTIONS = ("params", "batch_stats")
 
@@ -65,9 +68,10 @@ def flax_to_torch(tree: Mapping) -> Dict[str, torch.Tensor]:
 def flax_to_state_dict(tree: Mapping, variant: str) -> Dict[str, torch.Tensor]:
     """The port's state_dict of the whole model `variant` from its Flax
     variables (see flax_to_torch): the open-vocabulary ``YOLOWorld`` when
-    the tree has a ``WorldHead_0``, else ``YOLOv8`` with the class count
-    that the head's last convolution gives. Raises ValueError unless the
-    names and shapes are exactly those of that model."""
+    the tree has a ``WorldHead_0``, ``YOLOWorldV2`` with as many classes as
+    ``txt_feats`` has rows for a Worldv2 variant, else ``YOLOv8`` with the
+    class count that the head's last convolution gives. Raises ValueError
+    unless the names and shapes are exactly those of that model."""
     sd = flax_to_torch(tree)
     with torch.device("meta"):
         if "WorldHead_0.logit_scale" in sd:
@@ -75,6 +79,9 @@ def flax_to_state_dict(tree: Mapping, variant: str) -> Dict[str, torch.Tensor]:
 
             dim = sd["WorldHead_0.Conv_1.bias"].shape[0]
             want = YOLOWorld(YoloConfig(variant=variant, num_classes=dim), dim=dim).state_dict()
+        elif variant in VARIANTS_WORLDV2:
+            num_classes = sd.get("txt_feats", torch.empty(0)).shape[0]
+            want = YOLOWorldV2(YoloConfig(variant=variant, num_classes=num_classes)).state_dict()
         else:
             num_classes = sd.get("DetectHead_0.Conv_1.bias", torch.empty(0)).shape[0]
             want = YOLOv8(YoloConfig(variant=variant, num_classes=num_classes)).state_dict()

@@ -1,11 +1,17 @@
-"""The YOLOv8 (n/s/m/l/x) and YOLO11 (n/s/m/l/x) detectors as NCHW
-``nn.Module``s (counterpart of ``rtvm_tpu/models/yolo/model.py``).
+"""The YOLOv8 (n/s/m/l/x), YOLO11 (n/s/m/l/x) and YOLOv8-Worldv2
+(``yolov8{n,s,m,l,x}-worldv2``) detectors as NCHW ``nn.Module``s
+(counterpart of ``rtvm_tpu/models/yolo/model.py``, which has no Worldv2).
 
 CSP backbone -> SPPF (-> C2PSA for YOLO11) -> PAN neck -> decoupled DFL head
-over strides (8, 16, 32). Both families share one graph; they differ in the
+over strides (8, 16, 32). The families share one graph; they differ in the
 CSP block (C2f or C3k2), the widths and depths, the attention block on the
-stride-32 map and the head's classification branch. Modules are registered
-in the order the Flax model creates them, so their names are Flax's.
+stride-32 map and the head's classification branch. YOLOv8-Worldv2
+(Ultralytics ``yolov8-worldv2.yaml``, YOLO-World) is the YOLOv8 trunk of the
+same scale whose neck's four C2f are C2fAttn, guided by the vocabulary's
+text embeddings, with ``WorldDetectHead``; the embeddings are a buffer of
+the model read from its checkpoint, so that ``model(x) -> (box, cls)`` is
+every family's call. Modules are registered in the order the Flax model
+creates them (Ultralytics' for Worldv2), so their names are Flax's.
 """
 
 from __future__ import annotations
@@ -18,8 +24,8 @@ import torch
 import torch.nn.functional as F
 
 from rtvm_tpu_torch.device import resolve_device
-from rtvm_tpu_torch.models.yolo.modules import (C2PSA, SPPF, C2f, C3k2, ConvBnSiLU, DetectHead,
-                                                FlaxScope)
+from rtvm_tpu_torch.models.yolo.modules import (C2PSA, SPPF, C2f, C2fAttn, C3k2, ConvBnSiLU,
+                                                DetectHead, FlaxScope, WorldDetectHead)
 
 # depth multiple, width multiple, ratio (last-stage channel ratio)
 VARIANTS = {
@@ -38,6 +44,15 @@ VARIANTS11 = {
     "yolo11l": (1.00, 1.00, 512),
     "yolo11x": (1.00, 1.50, 512),
 }
+
+
+# YOLOv8-Worldv2: the yaml's max_channels of each scale (the trunk is the
+# YOLOv8 variant of the same scale)
+VARIANTS_WORLDV2 = {"yolov8n-worldv2": 1024, "yolov8s-worldv2": 1024, "yolov8m-worldv2": 768,
+                    "yolov8l-worldv2": 512, "yolov8x-worldv2": 512}
+TEXT_DIM = 512  # CLIP ViT-B/32's text embeddings: WorldDetect's embed, C2fAttn's gc
+# the yaml's heads of the neck's C2fAttn blocks (n4, n3, m4, m5)
+_WORLDV2_HEADS = (8, 4, 8, 16)
 
 
 def _make_divisible(x: float) -> int:
@@ -76,10 +91,22 @@ class YoloConfig:
 def yolo_features(cfg: YoloConfig, m: FlaxScope) -> Tuple[List[str], List[int]]:
     """Registers the YOLOv8 trunk (C2f backbone + SPPF + PAN neck) on `m` in
     Flax's creation order. Returns the trunk's module names in call order (see
-    YOLOv8.forward) and the channels of its stride 8/16/32 outputs."""
-    dm, wm, r = VARIANTS[cfg.variant]
+    YOLOv8.forward) and the channels of its stride 8/16/32 outputs. A
+    Worldv2 variant's neck blocks are C2fAttn, with the heads of Ultralytics'
+    ``parse_model`` (the yaml's, capped at max_channels // 64, times the
+    width); every block's embed channels then equal its hidden ones."""
+    world = cfg.variant in VARIANTS_WORLDV2
+    dm, wm, r = VARIANTS[cfg.variant.split("-")[0] if world else cfg.variant]
     c1, c2, c3, c4 = _ch(wm, 64), _ch(wm, 128), _ch(wm, 256), _ch(wm, 512)
     c5 = _ch(wm * r, 512)
+
+    def neck(c_in: int, c_out: int, i: int):
+        if not world:
+            return C2f(c_in, c_out, _d(dm, 3))
+        mc = VARIANTS_WORLDV2[cfg.variant]
+        heads = int(max(round(min(_WORLDV2_HEADS[i], mc // 64)) * wm, 1))
+        return C2fAttn(c_in, c_out, _d(dm, 3), heads, TEXT_DIM)
+
     names = [
         m.child(ConvBnSiLU(3, c1, 3, 2)),  # P1
         m.child(ConvBnSiLU(c1, c2, 3, 2)),  # P2
@@ -92,12 +119,12 @@ def yolo_features(cfg: YoloConfig, m: FlaxScope) -> Tuple[List[str], List[int]]:
         m.child(C2f(c5, c5, _d(dm, 3), shortcut=True)),
         m.child(SPPF(c5, c5)),  # -> p5
         # PAN neck
-        m.child(C2f(c5 + c4, c4, _d(dm, 3))),  # n4
-        m.child(C2f(c4 + c3, c3, _d(dm, 3))),  # n3, stride 8
+        m.child(neck(c5 + c4, c4, 0)),  # n4
+        m.child(neck(c4 + c3, c3, 1)),  # n3, stride 8
         m.child(ConvBnSiLU(c3, c3, 3, 2)),
-        m.child(C2f(c3 + c4, c4, _d(dm, 3))),  # m4, stride 16
+        m.child(neck(c3 + c4, c4, 2)),  # m4, stride 16
         m.child(ConvBnSiLU(c4, c4, 3, 2)),
-        m.child(C2f(c4 + c5, c5, _d(dm, 3))),  # m5, stride 32
+        m.child(neck(c4 + c5, c5, 3)),  # m5, stride 32
     ]
     return names, [c3, c4, c5]
 
@@ -152,12 +179,13 @@ class YoloTrunk(FlaxScope):
         super().__init__()
         self.cfg = cfg
         self.is11 = cfg.variant in VARIANTS11
-        if not self.is11 and cfg.variant not in VARIANTS:
+        if not (self.is11 or cfg.variant in VARIANTS or cfg.variant in VARIANTS_WORLDV2):
             raise ValueError(f"unknown YOLO variant {cfg.variant!r}")
         self.trunk, self.feature_channels = (yolo11_features if self.is11 else yolo_features)(
             cfg, self)
 
-    def features(self, x) -> List[torch.Tensor]:
+    def features(self, x, text=None) -> List[torch.Tensor]:
+        """`text`: the text embeddings that guide a Worldv2 neck."""
         layer = [getattr(self, n) for n in self.trunk]
         x = layer[1](layer[0](x))
         p3 = layer[4](layer[3](layer[2](x)))
@@ -166,10 +194,11 @@ class YoloTrunk(FlaxScope):
         neck = layer[10:]
         if self.is11:
             p5, neck = neck[0](p5), neck[1:]
-        n4 = neck[0](torch.cat([_upsample2(p5), p4], dim=1))
-        n3 = neck[1](torch.cat([_upsample2(n4), p3], dim=1))
-        m4 = neck[3](torch.cat([neck[2](n3), n4], dim=1))
-        m5 = neck[5](torch.cat([neck[4](m4), p5], dim=1))
+        csp = (lambda blk, y: blk(y)) if text is None else (lambda blk, y: blk(y, text))
+        n4 = csp(neck[0], torch.cat([_upsample2(p5), p4], dim=1))
+        n3 = csp(neck[1], torch.cat([_upsample2(n4), p3], dim=1))
+        m4 = csp(neck[3], torch.cat([neck[2](n3), n4], dim=1))
+        m5 = csp(neck[5], torch.cat([neck[4](m4), p5], dim=1))
         return [n3, m4, m5]
 
 
@@ -186,13 +215,34 @@ class YOLOv8(YoloTrunk):
         return getattr(self, self.head)(self.features(x))
 
 
+class YOLOWorldV2(YoloTrunk):
+    """YOLOv8-Worldv2: the trunk with a C2fAttn neck, then
+    ``WorldDetectHead_0``, both guided by ``txt_feats`` [num_classes, 512],
+    the vocabulary's L2-normalised text embeddings (a buffer, cast with the
+    weights; random unit rows until a checkpoint is loaded). forward(x [B,
+    3, H, W] RGB in 0..1) -> (box_logits, cls_logits), one NCHW tensor per
+    stride, one class channel a row of ``txt_feats``."""
+
+    def __init__(self, cfg: YoloConfig):
+        super().__init__(cfg)
+        self.register_buffer("txt_feats", F.normalize(torch.randn(cfg.num_classes, TEXT_DIM),
+                                                      dim=-1))
+        self.head = self.child(WorldDetectHead(self.feature_channels, cfg.num_classes, TEXT_DIM,
+                                               cfg.reg_max))
+
+    def forward(self, x):
+        return getattr(self, self.head)(self.features(x, self.txt_feats), self.txt_feats)
+
+
 def build_yolo(variant: str = "yolov8n", num_classes: int = 80, seed: int = 0,
-               device=None) -> YOLOv8:
-    """The model with seeded random weights (PyTorch's default init drawn from
-    `seed`; the global generator is left as it was), in eval mode on
-    `device` (``cuda`` unless given)."""
+               device=None) -> YoloTrunk:
+    """The model (YOLOWorldV2 for a Worldv2 variant, else YOLOv8) with
+    seeded random weights (PyTorch's default init drawn from `seed`; the
+    global generator is left as it was), in eval mode on `device` (``cuda``
+    unless given)."""
     dev = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        model = YOLOv8(YoloConfig(variant=variant, num_classes=num_classes))
+        cls = YOLOWorldV2 if variant in VARIANTS_WORLDV2 else YOLOv8
+        model = cls(YoloConfig(variant=variant, num_classes=num_classes))
     return model.eval().to(dev)

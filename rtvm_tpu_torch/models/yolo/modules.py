@@ -1,5 +1,7 @@
-"""YOLOv8 and YOLO11 building blocks as NCHW ``nn.Module``s (counterpart of
-``rtvm_tpu/models/yolo/modules.py``, which is NHWC Flax).
+"""YOLOv8, YOLO11 and YOLOv8-Worldv2 building blocks as NCHW ``nn.Module``s
+(counterpart of ``rtvm_tpu/models/yolo/modules.py``, which is NHWC Flax; the
+Worldv2 blocks, Ultralytics' ``C2fAttn``, ``MaxSigmoidAttnBlock`` and
+``WorldDetect(with_bn=True)``, have no JAX counterpart).
 
 Every module names its children as Flax names them inside a compact
 ``__call__``: the class name and a count per class in creation order
@@ -11,7 +13,8 @@ needs no table of names. Unlike Flax, each module is told its input channels.
 
 Convolutions are ``F.conv2d`` (cuDNN on the card) and the attention is two
 ``einsum``s and a softmax, as the JAX package leaves them to XLA: YOLO has no
-TPU kernel of its own.
+TPU kernel of its own. The text-guided attention is plain torch operations
+too, inside the span ``clip.attn``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,8 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from rtvm_tpu_torch.utils.timing import span
 
 BN_EPS = 1e-3  # Flax's BatchNorm epsilon here, not PyTorch's 1e-5
 BN_MOMENTUM = 0.97  # the running statistics' weight on their old value, Flax's convention
@@ -281,15 +286,66 @@ class C2PSA(FlaxScope):
         return self.ConvBnSiLU_1(torch.cat([a, self.run(self.inner, b)], dim=1))
 
 
+class MaxSigmoidAttnBlock(nn.Module):
+    """YOLO-World's text-guided attention (Ultralytics ``MaxSigmoidAttnBlock``
+    with c1 = c2 = ec, which builds no ``ec`` convolution). The guide
+    ``Dense_0`` (Linear guide_ch -> ch) of the text embeddings [K, guide_ch]
+    is viewed as [K, heads, ch // heads]; per head m and pixel, the weight is
+    sigmoid(max over k of x[m] . g[k, m] / sqrt(ch // heads) + bias[m]), and
+    it gates head m's channels of ``ConvBn_0`` (3x3 conv + BatchNorm) of x.
+    Plain torch operations inside the span ``clip.attn``, which has a range
+    on the device."""
+
+    def __init__(self, ch: int, heads: int, guide_ch: int = 512):
+        super().__init__()
+        self.heads, self.head_ch = heads, ch // heads
+        self.Dense_0 = nn.Linear(guide_ch, ch)
+        self.bias = nn.Parameter(torch.zeros(heads))
+        self.ConvBn_0 = ConvBn(ch, ch, 3)
+
+    def forward(self, x, text):
+        b, c, h, w = x.shape
+        with span("clip.attn", device_range=True):
+            g = self.Dense_0(text).reshape(-1, self.heads, self.head_ch)
+            aw = torch.einsum("bmjhw,kmj->bmhwk", x.reshape(b, self.heads, self.head_ch, h, w), g)
+            aw = torch.sigmoid(aw.amax(-1) / self.head_ch ** 0.5 + self.bias[:, None, None])
+            y = self.ConvBn_0(x).reshape(b, self.heads, self.head_ch, h, w) * aw[:, :, None]
+            return y.reshape(b, c, h, w)
+
+
+class C2fAttn(FlaxScope):
+    """YOLO-World's C2f with one more branch: the text-guided attention of
+    the last bottleneck's output, so the closing 1x1 takes (3 + n) * hidden
+    channels. forward(x, text [K, guide_ch])."""
+
+    def __init__(self, in_ch: int, out_ch: int, n: int = 1, heads: int = 1, guide_ch: int = 512,
+                 shortcut: bool = False, expansion: float = 0.5):
+        super().__init__()
+        hidden = int(out_ch * expansion)
+        self.hidden = hidden
+        self.ConvBnSiLU_0 = ConvBnSiLU(in_ch, 2 * hidden, 1)
+        self.inner = [self.child(Bottleneck(hidden, hidden, shortcut, 1.0)) for _ in range(n)]
+        self.MaxSigmoidAttnBlock_0 = MaxSigmoidAttnBlock(hidden, heads, guide_ch)
+        self.ConvBnSiLU_1 = ConvBnSiLU((3 + n) * hidden, out_ch, 1)
+
+    def forward(self, x, text):
+        outs = list(torch.split(self.ConvBnSiLU_0(x), self.hidden, dim=1))
+        for name in self.inner:
+            outs.append(getattr(self, name)(outs[-1]))
+        outs.append(self.MaxSigmoidAttnBlock_0(outs[-1], text))
+        return self.ConvBnSiLU_1(torch.cat(outs, dim=1))
+
+
 class DetectHead(FlaxScope):
     """Decoupled anchor-free head with DFL box regression (reg_max bins a side).
 
     dw_cls=True is YOLO11's depthwise-separable classification branch
     (DWConv3x3 + 1x1, twice) instead of v8's dense 3x3 pair. The widths follow
-    the first feature map's channels, as in the JAX head."""
+    the first feature map's channels, as in the JAX head. The class branch
+    ends in ``cls_out`` channels (default: one a class)."""
 
     def __init__(self, in_chs: Sequence[int], num_classes: int, reg_max: int = 16,
-                 dw_cls: bool = False):
+                 dw_cls: bool = False, cls_out: int = 0):
         super().__init__()
         c2 = max(16, in_chs[0] // 4, reg_max * 4)
         c3 = max(in_chs[0], min(num_classes, 100))
@@ -304,7 +360,7 @@ class DetectHead(FlaxScope):
                        self.child(ConvBnSiLU(c3, c3, 1))]
             else:
                 cls = [self.child(ConvBnSiLU(f, c3, 3)), self.child(ConvBnSiLU(c3, c3, 3))]
-            cls.append(self.child(nn.Conv2d(c3, num_classes, 1), "Conv"))
+            cls.append(self.child(nn.Conv2d(c3, cls_out or num_classes, 1), "Conv"))
             self.box.append(box)
             self.cls.append(cls)
 
@@ -312,6 +368,41 @@ class DetectHead(FlaxScope):
         box_outs = [self.run(names, f) for names, f in zip(self.box, feats)]
         cls_outs = [self.run(names, f) for names, f in zip(self.cls, feats)]
         return box_outs, cls_outs
+
+
+class BNContrastiveHead(nn.Module):
+    """YOLO-World's class logits with BatchNorm (Ultralytics
+    ``BNContrastiveHead``): ``BatchNorm_0`` of the region embeddings [B, D,
+    H, W], dotted with the L2-normalised text embeddings [K, D], times
+    exp(``logit_scale``), plus ``bias`` (one number). The BatchNorm is the
+    port's, with Flax's epsilon as every other here."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.BatchNorm_0 = BatchNorm(dim)
+        self.bias = nn.Parameter(torch.tensor([-10.0]))
+        self.logit_scale = nn.Parameter(torch.tensor(-1.0))
+
+    def forward(self, x, text):
+        t = F.normalize(text, dim=-1)
+        return (torch.einsum("bchw,kc->bkhw", self.BatchNorm_0(x), t) * self.logit_scale.exp()
+                + self.bias)
+
+
+class WorldDetectHead(DetectHead):
+    """YOLO-World's ``WorldDetect(nc, embed, with_bn=True)``: the DFL box
+    branch of DetectHead, and a class branch that ends in `embed`-wide
+    region embeddings, which each stride's ``BNContrastiveHead`` scores
+    against the text embeddings. forward(feats, text [K, embed])."""
+
+    def __init__(self, in_chs: Sequence[int], num_classes: int, embed: int = 512,
+                 reg_max: int = 16):
+        super().__init__(in_chs, num_classes, reg_max, cls_out=embed)
+        self.contrast = [self.child(BNContrastiveHead(embed)) for _ in in_chs]
+
+    def forward(self, feats, text):
+        box_outs, emb_outs = super().forward(feats)
+        return box_outs, [getattr(self, n)(e, text) for n, e in zip(self.contrast, emb_outs)]
 
 
 def dfl_expectation(box_logits: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
