@@ -23,6 +23,11 @@ Phases, each printed with its result and seconds on its own line:
      so a device sync inside the window step fails the phase; then kernel A
      against its plain version on the maps of window 1, timed through
      warp_batch (phase `warp_real`, also on the card with torch.profiler);
+     then kernel D (phase `weight`, the paint's analytic frame weight)
+     against its plain version run on the card, bit for bit, on window 1's
+     H_abs at 720x768, an orbit window at the fused 2216x2432 canvas and
+     its bands, and edge quads at both, timed beside it with its bound,
+     its registers and spills and its launch count;
   6. the ORB window step (BASELINE config 1), the same clip and checks, with
      kernel A as its only kernel;
   7. the detection of BASELINE config 3, for YOLOv8n and then YOLO11n: the
@@ -205,7 +210,8 @@ def counted(run):
     return out, dict(kernels.launches)
 
 
-NO_LAUNCHES = {"warp": 0, "patches": 0, "union": 0}  # paths that neither paint nor cut SIFT patches
+# the launch counts of paths that neither paint nor cut SIFT patches
+NO_LAUNCHES = {"warp": 0, "patches": 0, "union": 0, "weight": 0}
 
 
 # ----------------------------------------------------------------- inputs
@@ -587,6 +593,120 @@ def phase_union(torch, dev, regs: dict) -> dict:
             "by_shape": by_shape}
 
 
+WEIGHT_OPS = (48, 30, 12)  # float32 operations a grid point and valid segment, a grid point, a pixel
+WEIGHT_BANDS = ((0, 1), (2, 63), (1108, 65), (2214, 2), (1000, 1216))  # (row0, rows) at 2216 rows
+
+
+def weight_window(torch, n: int, hc: int, wc: int, hf: int, wf: int, seed: int):
+    """H_abs [n, 3, 3] of a window on a canvas: frames on the benchmark's
+    elliptical orbit (semi-axes 0.156 x 0.467 frame heights, 12 windows a
+    lap) about the canvas centre, each with the small rotation, scale and
+    perspective an ORB fit leaves."""
+    rng = np.random.RandomState(seed)
+    t = 2.0 * np.pi * (np.arange(n) + rng.rand() * 192) / 192.0
+    out = np.tile(np.eye(3), (n, 1, 1))
+    out[:, :2, :2] += rng.randn(n, 2, 2) * 1e-4
+    out[:, 2, :2] = rng.randn(n, 2) * 1e-7
+    out[:, 0, 2] = (wc - wf) / 2.0 + 0.156 * hf * np.sin(t) + rng.randn(n) * 1e-3
+    out[:, 1, 2] = (hc - hf) / 2.0 + 0.467 * hf * (np.cos(t) - 1.0) / 2.0 + rng.randn(n) * 1e-3
+    return torch.from_numpy(out.astype(np.float32))
+
+
+def weight_quads(torch, hc: int, wc: int, hf: int, wf: int):
+    """H [12, 3, 3]: quads that test kernel D's edges on a canvas: clipped,
+    rotated, mirrored, in strong perspective, with a corner near w = 0, off
+    the canvas, covering it, of near-zero size, behind the camera, NaN."""
+    def rot(deg, tx, ty, s=1.0):
+        a = np.deg2rad(deg)
+        return [[s * np.cos(a), -s * np.sin(a), tx], [s * np.sin(a), s * np.cos(a), ty], [0, 0, 1]]
+
+    hs = [[[1, 0, wc - wf / 2.0], [0, 1, -hf / 3.0], [0, 0, 1]], rot(30.0, wc / 2.0, hc / 8.0),
+          [[-1, 0, wc / 2.0 + wf], [0, 1, hc / 5.0], [0, 0, 1]],
+          [[1.1, 0.2, wc / 5.0], [-0.1, 0.9, hc / 5.0], [2.5e-3 * 96 / wf, 1.8e-3 * 60 / hf, 1]],
+          [[1, 0, wc / 6.0], [0, 1, hc / 7.0], [-1.0 / wf + 1e-6, 0, 1]],
+          [[1, 0, 4.0 * wc], [0, 1, 3.0 * hc], [0, 0, 1]], rot(5.0, -wc / 3.0, -hc / 2.0, 4.0 * hc / hf),
+          [[1e-6, 0, wc / 4.0], [0, 1e-6, hc / 2.5], [0, 0, 1]], [[1, 0, 1.5], [0, 1, 1.5], [0, 0, 1]],
+          (-np.eye(3)).tolist(), [[1, 0, wc / 6.0], [0, 1, hc / 7.0], [-2.0 / wf, 0, 1]],
+          np.full((3, 3), np.nan).tolist()]
+    return torch.tensor(hs, dtype=torch.float32)
+
+
+def phase_weight(torch, dev, regs: dict, live_H) -> dict:
+    """Kernel D against frame_weight_eval_plain on the card, bit for bit
+    (int32 views), on a real window's H_abs at the live 720x768 canvas, an
+    orbit window at the fused 2216x2432 canvas with its bands, and quads at
+    the edges of the function at both; then timed on the windows beside the
+    plain version, with its bound (operations at the float32 rate without
+    multiply-add, or bytes) and the ptxas report. Returns kernel D's row of
+    the kernel table (the fused window's numbers, the live's under
+    by_shape)."""
+    from rtvm_tpu_torch import kernels
+    from rtvm_tpu_torch.ops.warp import (frame_weight_eval, frame_weight_eval_plain,
+                                         frame_weight_params)
+
+    t0 = time.time()
+    name = "rtvm_frame_weight_kernel"
+    shapes = {"live": (720, 768, FRAME_H, FRAME_W, live_H.to(dev)),
+              "fused": (2216, 2432, STREAM_H, STREAM_W,
+                        weight_window(torch, WINDOW, 2216, 2432, STREAM_H, STREAM_W, SEED + 21).to(dev))}
+
+    def same_bits(a, b):
+        return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    by_shape, notes = {}, []
+    for key, (hc, wc, hf, wf, H) in shapes.items():
+        kernels.reset_launches()
+        quads = frame_weight_params(weight_quads(torch, hc, wc, hf, wf).to(dev), hf, wf, hc, wc)
+        params = frame_weight_params(H, hf, wf, hc, wc)
+        cases = [("window", params, 0, hc), ("quads", quads, 0, hc)]
+        cases += [("window band", params, r0, n) for r0, n in WEIGHT_BANDS if r0 + n <= hc]
+        for what, prm, row0, rows in cases:
+            got = frame_weight_eval(prm, hc, wc, row0=row0, rows=rows)
+            want = frame_weight_eval_plain(prm, hc, wc, row0=row0, rows=rows)
+            torch.cuda.synchronize()
+            if not same_bits(got, want):
+                off = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+                d = float((got - want).abs().max())
+                raise CheckFailed(f"weight {key} {what} rows {row0}+{rows}: kernel D differs from "
+                                  f"the plain version in {off} values, by up to {d}")
+        check(kernels.launches["weight"] == len(cases),
+              f"weight: launches {kernels.launches} in {len(cases)} calls")
+        ms = cuda_ms(torch, lambda: frame_weight_eval(params, hc, wc))
+        dev_ms = device_ms(torch, lambda: frame_weight_eval(params, hc, wc), name)
+        wrap_us = host_us(torch, lambda: frame_weight_eval(params, hc, wc))
+        plain_ms = cuda_ms(torch, lambda: frame_weight_eval_plain(params, hc, wc), reps=3, warmup=1)
+        b = H.shape[0]
+        g = -(-hc // 2) * -(-wc // 2)
+        ok = params[3].to(torch.int64)
+        valid = int((params[1].sum(dim=1) * ok).sum())
+        op_seg, op_point, op_pixel = WEIGHT_OPS
+        nops = valid * g * op_seg + int(ok.sum()) * g * op_point + b * hc * wc * op_pixel
+        nbytes = b * hc * wc * 4
+        t_ops = nops / F32_NOFMA_OPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        by_shape[key] = {"shape": [b, hc, wc], "valid_segments": valid, "ms": ms, "device_ms": dev_ms,
+                         "host_us": wrap_us, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "share_of_bound": bound_ms / (dev_ms or ms)}
+        notes.append(f"{key} [{b}, {hc}, {wc}] ({valid} valid segments): kernel {ms:.4f} ms (on the "
+                     f"card {fmt_ms(dev_ms)}; host {wrap_us:.1f} us a call), plain {plain_ms:.4f} ms, "
+                     f"bound {bound_ms:.4f} ms ({bound_by}; {nops / 1e9:.2f} G operations, "
+                     f"{nbytes / 1e6:.1f} MB), {bound_ms / (dev_ms or ms):.3f} of it")
+    r = regs.get(name)
+    ptx = (f"{r['registers']} registers, {r['smem']} B smem, spills {r['spill_stores']}/"
+           f"{r['spill_loads']} B" if r else "no ptxas report")
+    phase("weight", t0, f"kernel D bit for bit frame_weight_eval_plain on the card: a SIFT window's "
+                        f"H_abs at 720x768, an orbit window at 2216x2432 and its bands "
+                        f"{list(WEIGHT_BANDS)}, 12 edge quads at both; one launch a call; "
+                        + "; ".join(notes) + f"; {ptx}")
+    fused = by_shape["fused"]
+    return {"name": "frame_weight", "route": "cuda", "source": "rtvm_tpu_torch/csrc/weight.cu",
+            "replaces": "none (XLA fuses rtvm_tpu/ops/warp.py:557 on the TPU)", "max_abs_err": 0.0,
+            "ms": fused["ms"], "plain_ms": fused["plain_ms"], "bound_ms": fused["bound_ms"],
+            "bound_by": fused["bound_by"], "library_ms": None, "device_ms": fused["device_ms"],
+            "by_shape": by_shape}
+
+
 def run_mosaic(torch, dev, frames: np.ndarray, detector: str, no_sync: bool = False):
     """VideMosaic on frames[0], then N_WINDOWS windows of WINDOW frames.
     With no_sync, windows 2.. run under CUDA's sync debug mode "error" (the
@@ -658,19 +778,20 @@ def phase_window(torch, dev, frames: np.ndarray, path: np.ndarray, card: str,
           f"{name}: canvas shape {tuple(canvas_k.shape)}")
     fps = (N_WINDOWS - 1) * WINDOW / sum(secs[1:])
 
-    # the same run with the plain versions in place of the three kernels
+    # the same run with the plain versions in place of the four kernels
     saved = (stitcher_mod.warp_batch, sift_mod.extract_patches_octaves,
-             warp_ops.coarse_union_distance)
+             warp_ops.coarse_union_distance, warp_ops.frame_weight_eval)
     stitcher_mod.warp_batch = warp_plain
     sift_mod.extract_patches_octaves = extract_patches_octaves_plain
     warp_ops.coarse_union_distance = warp_ops.coarse_union_distance_plain
+    warp_ops.frame_weight_eval = warp_ops.frame_weight_eval_plain
     try:
         kernels.reset_launches()
         mp, auxs_p, secs_p = run_mosaic(torch, dev, frames, detector)
         check(sum(kernels.launches.values()) == 0, f"{name}: the plain run launched a kernel")
     finally:
         (stitcher_mod.warp_batch, sift_mod.extract_patches_octaves,
-         warp_ops.coarse_union_distance) = saved
+         warp_ops.coarse_union_distance, warp_ops.frame_weight_eval) = saved
     mse = float(((canvas_k - mp.state.canvas) ** 2).mean())
     psnr = math.inf if mse == 0 else 10 * math.log10(255.0**2 / mse)
     check(psnr >= MIN_PSNR_DB, f"{name}: kernel vs plain canvas PSNR {psnr:.2f} dB < {MIN_PSNR_DB}")
@@ -739,7 +860,7 @@ def phase_detect(torch, dev, frames: np.ndarray, card: str, model: str, window_r
     first_s = time.time() - t
     counts = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
-    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS}
+    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS, "weight": N_WINDOWS}
     check(counts == want, f"{name}: launch counts {counts}, expected {want}")
 
     _, w_auxs, w_m, w_fps = window_run
@@ -909,7 +1030,7 @@ def phase_pipeline(torch, dev, clip: str, tmp: str, card: str, window_m, det11: 
         wall = time.time() - t
         counts = dict(kernels.launches)
     n = N_WINDOWS * WINDOW
-    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS}
+    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS, "weight": N_WINDOWS}
     check(counts == want, f"pipeline: launch counts {counts}, expected {want}")
     check(stats["frames"] == n + 1 and stats["accepted"] >= MIN_ACCEPTED,
           f"pipeline: stats {stats}")
@@ -994,7 +1115,7 @@ def phase_pipeline_fused(torch, clip: str, card: str, det11: dict) -> dict:
     torch.cuda.synchronize()
     wall = time.time() - t
     counts = dict(kernels.launches)
-    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS}
+    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS, "weight": N_WINDOWS}
     check(counts == want, f"pipeline_fused: launch counts {counts}, expected {want}")
     check(stats["fused_windows"] == N_WINDOWS, f"pipeline_fused: stats {stats}")
     check(stats["accepted"] == det11["accepted"],
@@ -1103,7 +1224,8 @@ def phase_grow(torch, dev, tmp: str, card: str) -> dict:
                          shift + np.array([mh.h_offset, mh.w_offset]))
     check(err_f <= TRAJ_TOL_PX, f"grow: pre-scanned canvas corners off by {err_f:.3f} px")
     warp_equal(frames[1 + n - WINDOW : 1 + n], aux.H_abs[-1], pre[0][0], pre[0][1], "pre-scan")
-    want = {"warp": 2 * N_WINDOWS, "patches": 2 * (N_WINDOWS + 1), "union": 2 * N_WINDOWS}
+    want = {"warp": 2 * N_WINDOWS, "patches": 2 * (N_WINDOWS + 1), "union": 2 * N_WINDOWS,
+            "weight": 2 * N_WINDOWS}
     check(counts == want, f"grow: launch counts {counts}, expected {want}")
     phase("grow", t0,
           f"drift {GROW_STEP} px a frame; window loop: {accepted}/{n} accepted, canvas "
@@ -1296,7 +1418,7 @@ def phase_navigate(torch, dev, tmp: str, card: str) -> dict:
         peak = torch.cuda.max_memory_allocated()
     finally:
         patches.undo()
-    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS}
+    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS, "weight": N_WINDOWS}
     check(counts == want, f"navigate: launch counts {counts}, expected {want}")
     check(m.device.type == "cuda" and m.config.auto_grow, f"navigate: {m.device}, {m.config}")
     check(stats["frames"] == n + 1 and stats["accepted"] >= MIN_ACCEPTED, f"navigate: stats {stats}")
@@ -1405,7 +1527,7 @@ def phase_surface(torch, dev, frames: np.ndarray, m, auxs, tmp: str, card: str) 
     m.warp(frames[n], H)
     warp_ms = (time.perf_counter() - t) * 1e3
     warp_counts = dict(kernels.launches)
-    check(warp_counts == {"warp": 1, "patches": 0, "union": 1},
+    check(warp_counts == {"warp": 1, "patches": 0, "union": 1, "weight": 1},
           f"surface: warp launches {warp_counts}")
     got = (m.state.canvas, m.state.union_coarse)
     check(bool(torch.isfinite(got[0]).all()), "surface: non-finite canvas after warp")
@@ -1464,7 +1586,7 @@ def phase_surface(torch, dev, frames: np.ndarray, m, auxs, tmp: str, card: str) 
     torch.cuda.synchronize()
     viz_counts = dict(kernels.launches)
     # the stitch's 3 and 4, and one patch launch for render_matches' two frames
-    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 2, "union": N_WINDOWS}
+    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 2, "union": N_WINDOWS, "weight": N_WINDOWS}
     check(viz_counts == want, f"surface: visualize run launches {viz_counts}, expected {want}")
     dims = jpeg_dims(os.path.join(viz, "matches.jpg"))
     check(dims == (FRAME_H, 2 * FRAME_W) and os.listdir(viz) == ["matches.jpg"],
@@ -1651,7 +1773,7 @@ def phase_stream_1080p(torch, dev, card: str) -> tuple:
     first_s = time.time() - t
     counts = dict(kernels.launches)
     peak = torch.cuda.max_memory_allocated()
-    want = {"warp": N_WINDOWS, "patches": 0, "union": N_WINDOWS}
+    want = {"warp": N_WINDOWS, "patches": 0, "union": N_WINDOWS, "weight": N_WINDOWS}
     check(counts == want, f"stream_1080p: launch counts {counts}, expected {want}")
     ok = (aux.blended & aux.ok).reshape(n).cpu().numpy()
     check(int(ok.sum()) >= MIN_ACCEPTED, f"stream_1080p: {int(ok.sum())} of {n} frames accepted")
@@ -1933,7 +2055,8 @@ def phase_sift_854(torch, dev, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.time() - t
     counts = dict(kernels.launches)
-    check(counts == {"warp": 1, "patches": 2, "union": 1}, f"sift_854: launch counts {counts}")
+    check(counts == {"warp": 1, "patches": 2, "union": 1, "weight": 1},
+          f"sift_854: launch counts {counts}")
     blended, ok = aux.blended.cpu().numpy(), aux.ok.cpu().numpy()
     accepted = int((blended & ok).sum())
     check(accepted >= WINDOW - 1, f"sift_854: only {accepted} of {WINDOW} frames accepted")
@@ -2674,7 +2797,8 @@ def phase_web(torch, dev, tmp: str, card: str) -> dict:
         srv.shutdown()
         srv.server_close()
         server.join(timeout=30)
-    check(counts == {"warp": 1, "patches": 2, "union": 1}, f"web: launch counts {counts}")
+    check(counts == {"warp": 1, "patches": 2, "union": 1, "weight": 1},
+          f"web: launch counts {counts}")
     img = imdecode(jpg) if status == 200 else None
     check(img is not None and img.ndim == 3, f"web: mosaic.jpg gave {status}")
     running = sorted({f for s, f in states if s == "running"})
@@ -3374,7 +3498,7 @@ def phase_mesh(torch, dev, card: str) -> tuple:
                                              0 if name == "window" else 7))
         got = _sum_launches(ranks)
         n = MESH_RANKS * len(ranks[0]["step_ms"])  # one a rank a window
-        want = {"warp": n, "patches": n if name.endswith("sift") else 0, "union": n}
+        want = {"warp": n, "patches": n if name.endswith("sift") else 0, "union": n, "weight": n}
         check(got == want, f"mesh: {name}'s launches over the ranks {got}, expected {want}")
         for k in counts:
             counts[k] += got[k]
@@ -3427,7 +3551,8 @@ def phase_mesh_nccl(torch, dev, card: str, want: dict) -> dict:
     for k in ("ok", "H_abs", "canvas", "union_coarse", "kp", "desc", "H_old"):
         check(np.array_equal(got[k], want[k]), f"mesh_nccl: {k} differs from the one-process step")
     counts = _sum_launches([got])
-    check(counts == {"warp": MESH_WINDOWS, "patches": 0, "union": MESH_WINDOWS},
+    check(counts == {"warp": MESH_WINDOWS, "patches": 0, "union": MESH_WINDOWS,
+                     "weight": MESH_WINDOWS},
           f"mesh_nccl: launches {counts}")
     phase("mesh_nccl", t0, f"1 rank on NCCL, mesh {got['mesh']}: ok {int(got['ok'].sum())}/"
           f"{got['ok'].size}, H_abs and canvas bitwise the one-process step's; step ms (each "
@@ -3661,11 +3786,13 @@ def main() -> int:
         # all its octaves, plus one for the first frame's features
         sift_counts, sift_auxs, sift_m, sift_fps = phase_window(
             torch, dev, frames, cam, card, "sift",
-            {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS})
+            {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS, "weight": N_WINDOWS})
         row_a = warp_real(torch, dev, frames[1 : 1 + WINDOW], sift_auxs[0].H_abs, hc, wc)
+        row_d = phase_weight(torch, dev, regs, sift_auxs[0].H_abs)
         # ORB: one warp launch per window; its patches are uint8 cuts (no kernel)
         orb_counts = phase_window(torch, dev, frames, cam, card, "orb",
-                                  {"warp": N_WINDOWS, "patches": 0, "union": N_WINDOWS})[0]
+                                  {"warp": N_WINDOWS, "patches": 0, "union": N_WINDOWS,
+                                   "weight": N_WINDOWS})[0]
         by_path = {"window": sift_counts, "window_orb": orb_counts}
         det = {}
         for model in DETECT_MODELS:
@@ -3704,10 +3831,11 @@ def main() -> int:
             by_path["mesh_nccl"] = phase_mesh_nccl(torch, dev, card, mesh_orb)
             by_path["weights_pt"] = phase_weights_pt(torch, dev, tmp, frames[1:][DET_FRAMES], card)
         row_a["at_1080p"] = row_a_1080p
-        for row, key in ((row_a, "warp"), (row_b, "patches"), (row_c, "union")):
+        for row, key in ((row_a, "warp"), (row_b, "patches"), (row_c, "union"),
+                         (row_d, "weight")):
             row["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
             row["launches"] = sum(row["launches_by_path"].values())
-        rows = [row_a, row_b, row_c]
+        rows = [row_a, row_b, row_c, row_d]
     except CheckFailed as e:
         say(f"FAIL: {e}")
         return 1

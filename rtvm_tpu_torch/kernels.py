@@ -30,7 +30,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("warp.cu", "patches.cu", "union.cu")
+SOURCES = ("warp.cu", "patches.cu", "union.cu", "weight.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 # Launch counts, one plain integer per kernel. A wrapper adds one exactly
 # where it launches its kernel; chip_smoke.py zeroes them before driving the
 # main path and reads them after.
-launches = {"warp": 0, "patches": 0, "union": 0}
+launches = {"warp": 0, "patches": 0, "union": 0, "weight": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -142,6 +142,8 @@ def library() -> ctypes.CDLL:
             f = ctypes.c_float
             lib.rtvm_union_distance.argtypes = [p, p, p, i, i, i, f, f, f, p]
             lib.rtvm_union_distance.restype = i
+            lib.rtvm_frame_weight.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, f, f, f, p]
+            lib.rtvm_frame_weight.restype = i
             _lib = lib
         return _lib
 

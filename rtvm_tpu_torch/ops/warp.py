@@ -11,7 +11,8 @@ transform, and applies the smoothed weights elementwise. All of it is the same
 here, batched over a leading frame axis where the JAX stitcher vmaps it.
 
 The warp itself is kernel A (``ops/pallas_warp.py``); the union distance is
-kernel C (``csrc/union.cu``) for a CUDA tensor. ``_warp_gather_cm`` is
+kernel C (``csrc/union.cu``) and the analytic frame weight kernel D
+(``csrc/weight.cu``) for CUDA tensors. ``_warp_gather_cm`` is
 the JAX package's exact out-of-regime warp, kept as a reference for tests.
 
 The standalone single-frame API of the JAX module is here too:
@@ -273,15 +274,15 @@ def _upsample2_aligned(a: torch.Tensor, hc: int, wc: int) -> torch.Tensor:
     return a[..., :hc, :wc]
 
 
-def frame_weight_eval(params: tuple, hc: int, wc: int, row0: int = 0,
-                      rows: Optional[int] = None) -> torch.Tensor:
+def frame_weight_eval_plain(params: tuple, hc: int, wc: int, row0: int = 0,
+                            rows: Optional[int] = None) -> torch.Tensor:
     """Analytic frame weights [B, rows, wc] of the canvas rows row0 .. row0 +
     rows - 1 (default: all hc) from frame_weight_params: the signed
     segment-distance field on a stride-2 grid (linear across the quad
     boundary, so the upsample keeps the zero crossing on the edge), upsampled,
     gated by the full-resolution inside mask. Every pixel is computed alone,
     so a band (row0 even) holds the same bits as the same rows of the full
-    canvas."""
+    canvas (kernel D's plain version)."""
     if row0 % 2:
         raise ValueError(f"frame_weight_eval: row origin {row0} is not even")
     rows = hc - row0 if rows is None else rows
@@ -309,6 +310,56 @@ def frame_weight_eval(params: tuple, hc: int, wc: int, row0: int = 0,
     inside = torch.all(-(inx * (xs - ipx) + iny * (ys - ipy)) > 0.0, dim=1)
     keep = inside & ok_orient[:, None, None]
     return torch.where(keep, torch.clamp(up, min=0.0), torch.zeros_like(up))
+
+
+# PyTorch's CUDA division of a tensor by a Python scalar is a product with the
+# scalar's float32 reciprocal; kernel D takes these to match it bit for bit.
+_INV_CHAMFER_A = float(np.float32(1.0) / np.float32(CHAMFER_A))
+_INV_CHAMFER_B = float(np.float32(1.0) / np.float32(CHAMFER_B))
+_WEIGHT_MAX_SEGMENTS = 32  # kernel D's shared-memory table (frame_weight_params makes 20)
+
+
+def frame_weight_eval(params: tuple, hc: int, wc: int, row0: int = 0,
+                      rows: Optional[int] = None) -> torch.Tensor:
+    """frame_weight_eval_plain's function: kernel D (``csrc/weight.cu``) for
+    CUDA tensors, bitwise the plain version as it runs on the card, one
+    launch for all B frames; the plain version for CPU tensors. The params
+    are frame_weight_params' (segs [B, 4, S] and planes [B, 4, 4] float32,
+    seg_ok [B, S] and ok_orient [B] bool, all contiguous, S <= 32), and
+    row0 + rows <= hc."""
+    if row0 % 2:
+        raise ValueError(f"frame_weight_eval: row origin {row0} is not even")
+    rows = hc - row0 if rows is None else rows
+    segs, seg_ok, planes, ok_orient = params
+    for name, x, dtype in (("segs", segs, torch.float32), ("seg_ok", seg_ok, torch.bool),
+                           ("planes", planes, torch.float32), ("ok_orient", ok_orient, torch.bool)):
+        if x.dtype != dtype:
+            raise TypeError(f"frame_weight_eval wants {name} as {dtype}, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"frame_weight_eval wants a contiguous {name}")
+        if x.device != segs.device:
+            raise ValueError(f"frame_weight_eval: {name} on {x.device}, segs on {segs.device}")
+    b = segs.shape[0] if segs.dim() == 3 else -1
+    s = segs.shape[-1]
+    if (segs.shape != (b, 4, s) or seg_ok.shape != (b, s) or planes.shape != (b, 4, 4)
+            or ok_orient.shape != (b,) or not 1 <= s <= _WEIGHT_MAX_SEGMENTS):
+        raise ValueError(f"frame_weight_eval: params of shapes {[tuple(x.shape) for x in params]}")
+    if row0 < 0 or rows < 0 or row0 + rows > hc:
+        raise ValueError(f"frame_weight_eval: rows {row0} .. {row0 + rows} of a {hc}-row canvas")
+    if segs.device.type == "cpu":
+        return frame_weight_eval_plain(params, hc, wc, row0, rows)
+    if segs.device.type != "cuda":
+        raise ValueError(f"frame_weight_eval: no kernel for device {segs.device}")
+    out = torch.empty((b, rows, wc), dtype=torch.float32, device=segs.device)
+    if out.numel() == 0:
+        return out
+    code = kernels.library().rtvm_frame_weight(
+        segs.data_ptr(), seg_ok.data_ptr(), planes.data_ptr(), ok_orient.data_ptr(),
+        out.data_ptr(), b, s, hc, wc, row0, rows, CHAMFER_A, CHAMFER_B, _INV_CHAMFER_A,
+        _INV_CHAMFER_B, kernels.stream_handle(segs.device))
+    kernels.check(code, "rtvm_frame_weight")
+    kernels.launches["weight"] += 1
+    return out
 
 
 def hole_limited_distance(holes: torch.Tensor, radius: int = 16) -> torch.Tensor:

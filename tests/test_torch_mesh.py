@@ -221,7 +221,8 @@ def test_each_rank_holds_its_band_and_halo(ranks4):
             (l, h), (lo, hi) = res["rows"]
             assert a - lo <= 48 and hi - b <= 50
             assert res["frames_local"][0] == 8 // dp
-            assert res["launches"] == {"warp": 0, "patches": 0, "union": 0}  # plain versions on the CPU
+            # plain versions on the CPU
+            assert res["launches"] == {"warp": 0, "patches": 0, "union": 0, "weight": 0}
         if name.startswith("tall"):
             assert max(hi - lo for (_, _), (lo, hi) in (r["rows"] for r in ranks)) <= 0.7 * hc
 

@@ -10,10 +10,12 @@ the lap (stride 8), ORB, windows of 16. After --windows windows through
 VideMosaic.process_window it takes the next window's frames, H_abs and
 blended flags, and replays the parts of mosaic/stitcher.py:paint_band on the
 state the window starts from, each alone under torch.profiler: kernel A's
-warp, frame_weight_eval, the holes distance, the coarse footprints, the union
+warp, frame_weight_params, frame_weight_eval (kernel D and its plain version,
+held bitwise equal), the holes distance, the coarse footprints, the union
 distance (kernel C and its plain version, held bitwise equal), the upsample,
 the old weight, the blend blur and the blend loop; then paint_band whole,
-with kernel C and with the plain version in its place.
+with kernels C and D, with the plain union distance and with the plain
+frame weight in their places.
 
 Prints, for each part, the device time of its kernels a window (the sum of
 their durations, copies included), its launches and its wall time (CUDA
@@ -93,6 +95,9 @@ def main() -> int:
     new = warp_batch(frames_cm, inverse_maps(H_abs), hc, wc)
     params = W.frame_weight_params(H_abs, hf, wf, hc, wc)
     wq = W.frame_weight_eval(params, hc, wc)
+    wq_plain = W.frame_weight_eval_plain(params, hc, wc)
+    same_w = torch.equal(wq.view(torch.int32), wq_plain.view(torch.int32))
+    del wq_plain
     wnew = W.frame_weight_with_holes(new, wq)
     wnew = torch.where(blended[:, None, None], wnew, torch.zeros_like(wnew))
 
@@ -123,8 +128,9 @@ def main() -> int:
 
     parts = {
         "warp (kernel A)": lambda: warp_batch(frames_cm, inverse_maps(H_abs), hc, wc),
-        "frame_weight_eval": lambda: W.frame_weight_eval(W.frame_weight_params(H_abs, hf, wf, hc, wc),
-                                                         hc, wc),
+        "frame_weight_params": lambda: W.frame_weight_params(H_abs, hf, wf, hc, wc),
+        "frame_weight_eval (kernel D)": lambda: W.frame_weight_eval(params, hc, wc),
+        "frame_weight_eval (plain)": lambda: W.frame_weight_eval_plain(params, hc, wc),
         "holes distance": lambda: W.frame_weight_with_holes(new, wq),
         "footprints": unions,
         "union distance (kernel C)": lambda: W.coarse_union_distance(ub),
@@ -135,16 +141,17 @@ def main() -> int:
         "blend loop": blend_loop,
         "paint_band": lambda: S.paint_band(st.canvas, st.union_coarse, frames_cm, H_abs, blended,
                                            (hf, wf), (hc, wc)),
-        "paint_band, plain union": lambda: plain_paint(),
+        "paint_band, plain union": lambda: plain_paint("coarse_union_distance"),
+        "paint_band, plain weight": lambda: plain_paint("frame_weight_eval"),
     }
 
-    def plain_paint():
-        kernel_c = W.coarse_union_distance
-        W.coarse_union_distance = W.coarse_union_distance_plain
+    def plain_paint(fn: str):
+        kernel = getattr(W, fn)
+        setattr(W, fn, getattr(W, fn + "_plain"))
         try:
             return parts["paint_band"]()
         finally:
-            W.coarse_union_distance = kernel_c
+            setattr(W, fn, kernel)
 
     cuda = torch.autograd.DeviceType.CUDA
     out = {}
@@ -168,10 +175,10 @@ def main() -> int:
         print(f"{name:28s} device {out[name]['device_ms']:9.3f} ms  launches "
               f"{out[name]['launches']:6.0f}  wall {wall:9.3f} ms", flush=True)
     print(f"canvas {hc}x{wc}, union grids {tuple(ub.shape)}, {int(blended.sum())}/{b} blended, "
-          f"kernel C bitwise the plain version: {same}; on {card}")
+          f"kernel C bitwise the plain version: {same}, kernel D: {same_w}; on {card}")
     print(json.dumps({"card": card, "canvas": [hc, wc], "grids": list(ub.shape),
-                      "union_bitwise": same, "parts": out}))
-    return 0 if same else 1
+                      "union_bitwise": same, "weight_bitwise": same_w, "parts": out}))
+    return 0 if same and same_w else 1
 
 
 if __name__ == "__main__":
