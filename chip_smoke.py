@@ -138,6 +138,7 @@ Imports torch, numpy and rtvm_tpu_torch only.
 
 from __future__ import annotations
 
+import collections
 import copy
 import json
 import math
@@ -200,6 +201,34 @@ def phase(name: str, t0: float, result: str) -> None:
     say(f"[{name}] {result} ({time.time() - t0:.2f} s)")
 
 
+# the kernels that launch once a window step: the paint's warp (A), union
+# (C) and frame weight (D)
+PAINT_KERNELS = ("warp", "union", "weight")
+# the launch counts of paths that neither paint nor cut SIFT patches
+NO_LAUNCHES: dict = {}
+
+
+def window_launches(windows: int, patches: int = 0) -> dict:
+    """The launch counts of `windows` window steps whose SIFT patch cuts
+    took `patches` launches of kernel B."""
+    want = dict.fromkeys(PAINT_KERNELS, windows)
+    if patches:
+        want["patches"] = patches
+    return want
+
+
+def launch_counts() -> dict:
+    """kernels.launches as a dict of the kernels that launched."""
+    from rtvm_tpu_torch import kernels
+
+    return dict(+kernels.launches)
+
+
+def add_launches(*counts) -> dict:
+    """The sum of launch-count dicts, by kernel."""
+    return dict(sum(map(collections.Counter, counts), collections.Counter()))
+
+
 def counted(run):
     """(run(), the kernels' launch counts in it): every count is set to 0
     just before `run` and read just after."""
@@ -207,11 +236,7 @@ def counted(run):
 
     kernels.reset_launches()
     out = run()
-    return out, dict(kernels.launches)
-
-
-# the launch counts of paths that neither paint nor cut SIFT patches
-NO_LAUNCHES = {"warp": 0, "patches": 0, "union": 0, "weight": 0}
+    return out, launch_counts()
 
 
 # ----------------------------------------------------------------- inputs
@@ -335,7 +360,7 @@ def bound(nbytes: float, nops: float) -> tuple[float, str]:
 
 def phase_warp(torch, dev, frames_u8: np.ndarray, hc: int, wc: int) -> None:
     """Kernel A against warp_plain on the four fixed maps: bitwise equal."""
-    from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch, warp_plain
+    from rtvm_tpu_torch.ops.kernel_warp import inverse_maps, warp_batch, warp_plain
 
     t0 = time.time()
     names = list(WARP_CASES)
@@ -382,7 +407,7 @@ def warp_real(torch, dev, frames_u8: np.ndarray, H_abs, hc: int, wc: int) -> dic
     warp_plain, then timed through warp_batch beside warp_plain and
     grid_sample on the same maps, and on maps that put the frame far off the
     canvas (every tile empty: the kernel's store-only floor)."""
-    from rtvm_tpu_torch.ops.pallas_warp import (TILE_H, TILE_W, inverse_maps, tile_is_empty,
+    from rtvm_tpu_torch.ops.kernel_warp import (TILE_H, TILE_W, inverse_maps, tile_is_empty,
                                                 warp_batch, warp_plain)
 
     t0 = time.time()
@@ -446,7 +471,7 @@ def phase_patches(torch, dev, frames_u8: np.ndarray) -> dict:
     from rtvm_tpu_torch.config import FeatureConfig
     from rtvm_tpu_torch.ops import color
     from rtvm_tpu_torch.ops.features.sift import PATCH, _octave_quotas, detect_pyramid
-    from rtvm_tpu_torch.ops.pallas_patches import (extract_patches_octaves,
+    from rtvm_tpu_torch.ops.kernel_patches import (extract_patches_octaves,
                                                    extract_patches_octaves_plain)
 
     t0 = time.time()
@@ -744,14 +769,14 @@ def phase_window(torch, dev, frames: np.ndarray, path: np.ndarray, card: str,
     import rtvm_tpu_torch.ops.features.sift as sift_mod
     from rtvm_tpu_torch import kernels
     from rtvm_tpu_torch.ops import warp as warp_ops
-    from rtvm_tpu_torch.ops.pallas_patches import extract_patches_octaves_plain
-    from rtvm_tpu_torch.ops.pallas_warp import warp_plain
+    from rtvm_tpu_torch.ops.kernel_patches import extract_patches_octaves_plain
+    from rtvm_tpu_torch.ops.kernel_warp import warp_plain
 
     t0 = time.time()
     name = "window" if detector == "sift" else f"window_{detector}"
     kernels.reset_launches()
     m, auxs, secs = run_mosaic(torch, dev, frames, detector, no_sync=True)
-    counts = dict(kernels.launches)
+    counts = launch_counts()
     n = N_WINDOWS * WINDOW
     check(counts == want, f"{name}: launch counts {counts}, expected {want}")
 
@@ -858,9 +883,9 @@ def phase_detect(torch, dev, frames: np.ndarray, card: str, model: str, window_r
     aux, dets = m.process_clip(wins, det_fn=det_fn)
     torch.cuda.synchronize()
     first_s = time.time() - t
-    counts = dict(kernels.launches)
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS, "weight": N_WINDOWS}
+    want = window_launches(N_WINDOWS, N_WINDOWS + 1)
     check(counts == want, f"{name}: launch counts {counts}, expected {want}")
 
     _, w_auxs, w_m, w_fps = window_run
@@ -1028,9 +1053,9 @@ def phase_pipeline(torch, dev, clip: str, tmp: str, card: str, window_m, det11: 
         m, stats = cli.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t
-        counts = dict(kernels.launches)
+        counts = launch_counts()
     n = N_WINDOWS * WINDOW
-    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS, "weight": N_WINDOWS}
+    want = window_launches(N_WINDOWS, N_WINDOWS + 1)
     check(counts == want, f"pipeline: launch counts {counts}, expected {want}")
     check(stats["frames"] == n + 1 and stats["accepted"] >= MIN_ACCEPTED,
           f"pipeline: stats {stats}")
@@ -1114,8 +1139,8 @@ def phase_pipeline_fused(torch, clip: str, card: str, det11: dict) -> dict:
                           update_callback=lambda fc, img, pct: calls.append((fc, img.shape, pct)))
     torch.cuda.synchronize()
     wall = time.time() - t
-    counts = dict(kernels.launches)
-    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS, "weight": N_WINDOWS}
+    counts = launch_counts()
+    want = window_launches(N_WINDOWS, N_WINDOWS + 1)
     check(counts == want, f"pipeline_fused: launch counts {counts}, expected {want}")
     check(stats["fused_windows"] == N_WINDOWS, f"pipeline_fused: stats {stats}")
     check(stats["accepted"] == det11["accepted"],
@@ -1147,7 +1172,7 @@ def phase_grow(torch, dev, tmp: str, card: str) -> dict:
     from rtvm_tpu_torch.config import MosaicConfig
     from rtvm_tpu_torch.mosaic.prescan import prescan_canvas_from_video
     from rtvm_tpu_torch.mosaic.stitcher import VideMosaic
-    from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch, warp_plain
+    from rtvm_tpu_torch.ops.kernel_warp import inverse_maps, warp_batch, warp_plain
     from rtvm_tpu_torch.pipelines.mosaic_pipeline import run_mosaic
 
     t0 = time.time()
@@ -1188,7 +1213,7 @@ def phase_grow(torch, dev, tmp: str, card: str) -> dict:
         want_c.append(shift[wi * WINDOW : (wi + 1) * WINDOW] + np.array([before[-1][1], before[-1][2]]))
     torch.cuda.synchronize()
     wall_w = time.time() - t
-    counts = dict(kernels.launches)
+    counts = launch_counts()
     accepted = int(torch.cat(ok).sum())
     check(accepted >= MIN_ACCEPTED, f"grow: window loop accepted {accepted} of {n}")
     err_w = corner_error(torch.cat(H_abs).cpu().numpy(), np.concatenate(want_c))
@@ -1206,7 +1231,7 @@ def phase_grow(torch, dev, tmp: str, card: str) -> dict:
     mf, stats = run_mosaic(clip, config=cfg, fused=True)
     torch.cuda.synchronize()
     wall_f = time.time() - t
-    counts = {k: counts.get(k, 0) + v for k, v in kernels.launches.items()}
+    counts = add_launches(counts, launch_counts())
     t = time.time()
     pre = prescan_canvas_from_video(clip)
     prescan_s = time.time() - t
@@ -1224,8 +1249,7 @@ def phase_grow(torch, dev, tmp: str, card: str) -> dict:
                          shift + np.array([mh.h_offset, mh.w_offset]))
     check(err_f <= TRAJ_TOL_PX, f"grow: pre-scanned canvas corners off by {err_f:.3f} px")
     warp_equal(frames[1 + n - WINDOW : 1 + n], aux.H_abs[-1], pre[0][0], pre[0][1], "pre-scan")
-    want = {"warp": 2 * N_WINDOWS, "patches": 2 * (N_WINDOWS + 1), "union": 2 * N_WINDOWS,
-            "weight": 2 * N_WINDOWS}
+    want = window_launches(2 * N_WINDOWS, 2 * (N_WINDOWS + 1))
     check(counts == want, f"grow: launch counts {counts}, expected {want}")
     phase("grow", t0,
           f"drift {GROW_STEP} px a frame; window loop: {accepted}/{n} accepted, canvas "
@@ -1414,11 +1438,11 @@ def phase_navigate(torch, dev, tmp: str, card: str) -> dict:
         m, stats = cli.main(argv)
         torch.cuda.synchronize()
         wall = time.time() - t
-        counts, astar_calls = dict(kernels.launches), native.calls["astar"]
+        counts, astar_calls = launch_counts(), native.calls["astar"]
         peak = torch.cuda.max_memory_allocated()
     finally:
         patches.undo()
-    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS, "weight": N_WINDOWS}
+    want = window_launches(N_WINDOWS, N_WINDOWS + 1)
     check(counts == want, f"navigate: launch counts {counts}, expected {want}")
     check(m.device.type == "cuda" and m.config.auto_grow, f"navigate: {m.device}, {m.config}")
     check(stats["frames"] == n + 1 and stats["accepted"] >= MIN_ACCEPTED, f"navigate: stats {stats}")
@@ -1514,7 +1538,7 @@ def phase_surface(torch, dev, frames: np.ndarray, m, auxs, tmp: str, card: str) 
     from rtvm_tpu_torch import kernels
     from rtvm_tpu_torch.config import MosaicConfig
     from rtvm_tpu_torch.mosaic.stitcher import VideMosaic
-    from rtvm_tpu_torch.ops.pallas_warp import warp_plain
+    from rtvm_tpu_torch.ops.kernel_warp import warp_plain
     from rtvm_tpu_torch.pipelines.mosaic_pipeline import run_mosaic
 
     t0 = time.time()
@@ -1526,8 +1550,8 @@ def phase_surface(torch, dev, frames: np.ndarray, m, auxs, tmp: str, card: str) 
     t = time.perf_counter()
     m.warp(frames[n], H)
     warp_ms = (time.perf_counter() - t) * 1e3
-    warp_counts = dict(kernels.launches)
-    check(warp_counts == {"warp": 1, "patches": 0, "union": 1, "weight": 1},
+    warp_counts = launch_counts()
+    check(warp_counts == window_launches(1),
           f"surface: warp launches {warp_counts}")
     got = (m.state.canvas, m.state.union_coarse)
     check(bool(torch.isfinite(got[0]).all()), "surface: non-finite canvas after warp")
@@ -1584,9 +1608,9 @@ def phase_surface(torch, dev, frames: np.ndarray, m, auxs, tmp: str, card: str) 
     run_mosaic(clip, config=MosaicConfig(window_size=WINDOW), detector_type="sift", visualize=True,
                viz_dir=viz)
     torch.cuda.synchronize()
-    viz_counts = dict(kernels.launches)
+    viz_counts = launch_counts()
     # the stitch's 3 and 4, and one patch launch for render_matches' two frames
-    want = {"warp": N_WINDOWS, "patches": N_WINDOWS + 2, "union": N_WINDOWS, "weight": N_WINDOWS}
+    want = window_launches(N_WINDOWS, N_WINDOWS + 2)
     check(viz_counts == want, f"surface: visualize run launches {viz_counts}, expected {want}")
     dims = jpeg_dims(os.path.join(viz, "matches.jpg"))
     check(dims == (FRAME_H, 2 * FRAME_W) and os.listdir(viz) == ["matches.jpg"],
@@ -1740,7 +1764,7 @@ def phase_stream_1080p(torch, dev, card: str) -> tuple:
     from rtvm_tpu_torch.models.yolo.postprocess import Detections, match_detections
     from rtvm_tpu_torch.mosaic.prescan import prescan_canvas
     from rtvm_tpu_torch.mosaic.stitcher import VideMosaic
-    from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch, warp_plain
+    from rtvm_tpu_torch.ops.kernel_warp import inverse_maps, warp_batch, warp_plain
 
     t0 = time.time()
     model, ckpt, det_hw = STREAM_DET
@@ -1771,9 +1795,9 @@ def phase_stream_1080p(torch, dev, card: str) -> tuple:
     aux, dets = m.process_clip(wins, det_fn=det_fn)
     torch.cuda.synchronize()
     first_s = time.time() - t
-    counts = dict(kernels.launches)
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    want = {"warp": N_WINDOWS, "patches": 0, "union": N_WINDOWS, "weight": N_WINDOWS}
+    want = window_launches(N_WINDOWS)
     check(counts == want, f"stream_1080p: launch counts {counts}, expected {want}")
     ok = (aux.blended & aux.ok).reshape(n).cpu().numpy()
     check(int(ok.sum()) >= MIN_ACCEPTED, f"stream_1080p: {int(ok.sum())} of {n} frames accepted")
@@ -2040,7 +2064,7 @@ def phase_sift_854(torch, dev, card: str) -> dict:
     from rtvm_tpu_torch.mosaic.stitcher import VideMosaic
     from rtvm_tpu_torch.ops import color
     from rtvm_tpu_torch.ops.features.sift import detect_pyramid
-    from rtvm_tpu_torch.ops.pallas_patches import (extract_patches_octaves,
+    from rtvm_tpu_torch.ops.kernel_patches import (extract_patches_octaves,
                                                    extract_patches_octaves_plain)
 
     t0 = time.time()
@@ -2054,8 +2078,8 @@ def phase_sift_854(torch, dev, card: str) -> dict:
     aux = m.process_window(win)
     torch.cuda.synchronize()
     wall = time.time() - t
-    counts = dict(kernels.launches)
-    check(counts == {"warp": 1, "patches": 2, "union": 1, "weight": 1},
+    counts = launch_counts()
+    check(counts == window_launches(1, 2),
           f"sift_854: launch counts {counts}")
     blended, ok = aux.blended.cpu().numpy(), aux.ok.cpu().numpy()
     accepted = int((blended & ok).sum())
@@ -2396,7 +2420,7 @@ def phase_depth3d_multiview(torch, dev, tmp: str, card: str) -> dict:
         vols[str(d)], n = counted(lambda: tsdf.fuse_tsdf(
             tsdf.make_tsdf((-1.2, -1.2, -1.2), 2.4, grid=72), depths, K, poses, device=d))
         if d is dev:
-            counts = {k: counts[k] + n[k] for k in counts}
+            counts = add_launches(counts, n)
         vols[str(d) + "_s"] = time.time() - t
     vk, vc = vols[str(dev)], vols["cpu"]
     t_err = float(np.abs(vk.tsdf - vc.tsdf).max())
@@ -2563,7 +2587,7 @@ def phase_view(torch, dev, tmp: str, card: str) -> tuple:
             wall = time.time() - t
         peak = torch.cuda.max_memory_allocated() / 2**20
         check(c == NO_LAUNCHES, f"view {kind}: launch counts {c}")
-        counts = {k: counts[k] + c[k] for k in counts}
+        counts = add_launches(counts, c)
         args = walls.last["splat"][0]
         check(got == out and args[0].device.type == "cuda", f"view {kind}: wrote {got}, splat on "
               f"{args[0].device}")
@@ -2797,7 +2821,7 @@ def phase_web(torch, dev, tmp: str, card: str) -> dict:
         srv.shutdown()
         srv.server_close()
         server.join(timeout=30)
-    check(counts == {"warp": 1, "patches": 2, "union": 1, "weight": 1},
+    check(counts == window_launches(1, 2),
           f"web: launch counts {counts}")
     img = imdecode(jpg) if status == 200 else None
     check(img is not None and img.ndim == 3, f"web: mosaic.jpg gave {status}")
@@ -3194,7 +3218,7 @@ def phase_train_world(torch, dev, tmp: str, card: str) -> dict:
     check(rel <= rel_max and share >= share_min, f"train_world: beyond {DET_BOUNDS['float32']}")
     check(counts == NO_LAUNCHES and eval_counts == NO_LAUNCHES,
           f"train_world: launch counts {counts} {eval_counts}")
-    return {k: counts[k] + eval_counts[k] for k in counts}
+    return add_launches(counts, eval_counts)
 
 
 def phase_train_depth(torch, dev, tmp: str, card: str) -> dict:
@@ -3286,7 +3310,7 @@ MESH_EDGE_BAND = 50
 # are bitwise, tests/test_torch_mesh.py). On an H100, 700 W: the canvas
 # 3.81e-4 largest over 16 frames; a fault in a band or its halo moves
 # weights by 1e-2 or more.
-MESH_TP_FIELDS = ("ok", "blended", "H_abs", "num_inliers", "num_matches", "two_pass", "H_old",
+MESH_TP_FIELDS = ("ok", "blended", "H_abs", "num_inliers", "num_matches", "H_old",
                   "hbuf", "kp", "desc", "kp_valid", "union_coarse")
 MESH_TP_CANVAS_TOL = 1e-3
 # Training (tests/test_torch_mesh.py's bounds): the loss relative, BatchNorm's
@@ -3428,11 +3452,7 @@ def _mib(x) -> str:
 
 
 def _sum_launches(ranks: list) -> dict:
-    out = dict(NO_LAUNCHES)
-    for r in ranks:
-        for k, v in r["launches"].items():
-            out[k] += v
-    return out
+    return add_launches(*(r["launches"] for r in ranks))
 
 
 def _train_gap(want: dict, got: dict) -> tuple:
@@ -3461,7 +3481,7 @@ def phase_mesh(torch, dev, card: str) -> tuple:
     windows)."""
     from rtvm_tpu_torch import kernels
     from rtvm_tpu_torch.models.yolo.postprocess import Detections, match_detections
-    from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch, warp_plain
+    from rtvm_tpu_torch.ops.kernel_warp import inverse_maps, warp_batch, warp_plain
     from rtvm_tpu_torch.parallel import mesh as PM
 
     t0 = time.time()
@@ -3498,10 +3518,9 @@ def phase_mesh(torch, dev, card: str) -> tuple:
                                              0 if name == "window" else 7))
         got = _sum_launches(ranks)
         n = MESH_RANKS * len(ranks[0]["step_ms"])  # one a rank a window
-        want = {"warp": n, "patches": n if name.endswith("sift") else 0, "union": n, "weight": n}
+        want = window_launches(n, n if name.endswith("sift") else 0)
         check(got == want, f"mesh: {name}'s launches over the ranks {got}, expected {want}")
-        for k in counts:
-            counts[k] += got[k]
+        counts = add_launches(counts, got)
     notes += ["witness: " + _batch_witness(torch, cases[k], dev)
               for k in ("production", "production_sift")]
     notes.append("witness: " + _blur_witness(torch, dev, 720, 768, MESH_RANKS))
@@ -3551,8 +3570,7 @@ def phase_mesh_nccl(torch, dev, card: str, want: dict) -> dict:
     for k in ("ok", "H_abs", "canvas", "union_coarse", "kp", "desc", "H_old"):
         check(np.array_equal(got[k], want[k]), f"mesh_nccl: {k} differs from the one-process step")
     counts = _sum_launches([got])
-    check(counts == {"warp": MESH_WINDOWS, "patches": 0, "union": MESH_WINDOWS,
-                     "weight": MESH_WINDOWS},
+    check(counts == window_launches(MESH_WINDOWS),
           f"mesh_nccl: launches {counts}")
     phase("mesh_nccl", t0, f"1 rank on NCCL, mesh {got['mesh']}: ok {int(got['ok'].sum())}/"
           f"{got['ok'].size}, H_abs and canvas bitwise the one-process step's; step ms (each "
@@ -3720,7 +3738,7 @@ def phase_weights_pt(torch, dev, tmp: str, frames4: np.ndarray, card: str) -> di
     _, share_min, gap_max = DET_BOUNDS["float32"]
     check(rel <= PT_LOGIT_TOL and m["share"] >= share_min and m["max_score_gap"] <= gap_max,
           f"weights_pt: yolo11s on the card against the CPU: logits {rel:.3g}, {m}")
-    counts = dict(kernels.launches)
+    counts = launch_counts()
     check(counts == NO_LAUNCHES, f"weights_pt: launches {counts}")
     phase("weights_pt", t0, f"yolov8n .npz -> ultralytics .pt -> state_dict equal, converted in "
           f"{conv_s:.3f} s, logits bitwise on the card; yolo11s from a seeded half-precision .pt "
@@ -3786,13 +3804,12 @@ def main() -> int:
         # all its octaves, plus one for the first frame's features
         sift_counts, sift_auxs, sift_m, sift_fps = phase_window(
             torch, dev, frames, cam, card, "sift",
-            {"warp": N_WINDOWS, "patches": N_WINDOWS + 1, "union": N_WINDOWS, "weight": N_WINDOWS})
+            window_launches(N_WINDOWS, N_WINDOWS + 1))
         row_a = warp_real(torch, dev, frames[1 : 1 + WINDOW], sift_auxs[0].H_abs, hc, wc)
         row_d = phase_weight(torch, dev, regs, sift_auxs[0].H_abs)
         # ORB: one warp launch per window; its patches are uint8 cuts (no kernel)
         orb_counts = phase_window(torch, dev, frames, cam, card, "orb",
-                                  {"warp": N_WINDOWS, "patches": 0, "union": N_WINDOWS,
-                                   "weight": N_WINDOWS})[0]
+                                  window_launches(N_WINDOWS))[0]
         by_path = {"window": sift_counts, "window_orb": orb_counts}
         det = {}
         for model in DETECT_MODELS:
@@ -3833,7 +3850,7 @@ def main() -> int:
         row_a["at_1080p"] = row_a_1080p
         for row, key in ((row_a, "warp"), (row_b, "patches"), (row_c, "union"),
                          (row_d, "weight")):
-            row["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
+            row["launches_by_path"] = {p: c.get(key, 0) for p, c in by_path.items()}
             row["launches"] = sum(row["launches_by_path"].values())
         rows = [row_a, row_b, row_c, row_d]
     except CheckFailed as e:

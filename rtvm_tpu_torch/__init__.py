@@ -12,9 +12,11 @@ visual odometry, SLAM and the terrain analysis (``slam``), and the trainers
 (``models.yolo.train_synth``, ``models.yolo.train_world``,
 ``models.train_depth``) with checkpoints in the JAX package's format. The two kernels the JAX package wrote in
 Pallas for the TPU are hand-written CUDA here (``csrc/warp.cu``,
-``csrc/patches.cu``), built with ``nvcc`` at first use and loaded with ctypes
-(``kernels.py``). The host algorithms the JAX package borrows from cv2 and its
-A* router are C++ in ``csrc_host/`` (``navigate/native.py``). Everything else
+``csrc/patches.cu``), with two more for the paint (``csrc/union.cu``,
+``csrc/weight.cu``); ``kernels.py`` builds them with ``nvcc`` at first use,
+loads them with ctypes and launches them. The host algorithms the JAX package
+borrows from cv2 and its A* router are C++ in ``csrc_host/``
+(``navigate/native.py``, built by the same routine with ``g++``). Everything else
 is plain PyTorch.
 
 The package imports neither ``jax`` nor anything of ``rtvm_tpu``. Entry points

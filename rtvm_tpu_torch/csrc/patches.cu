@@ -10,7 +10,7 @@
 // ONE cp.async.bulk.tensor load of a box out of the stack into shared memory,
 // and ONE cp.async.bulk store of the 4 KB patch to its place in the output.
 // It is a pure copy, so it is byte-identical to the plain version
-// (ops/pallas_patches.py:extract_patches_octaves_plain).
+// (ops/kernel_patches.py:extract_patches_octaves_plain).
 //
 // TMA does not take an arbitrary start column: a box whose first column is
 // not 16-byte aligned faults (cudaErrorIllegalInstruction on an H100). So
@@ -44,7 +44,7 @@
 // box reaching past W_o is filled with zeros by TMA, never read from the
 // pitch's padding (a patch's own 32 columns lie inside W_o). The SIFT
 // levels are laid out with such a pitch (ops/features/sift.py:_octave_levels);
-// the wrapper checks the rule (ops/pallas_patches.py:tma_constraints) and
+// the wrapper checks the rule (ops/kernel_patches.py:tma_constraints) and
 // raises otherwise.
 // Origins are clamped to [0, R_o - 32] x [0, W_o - 32], dynamic_slice's rule.
 

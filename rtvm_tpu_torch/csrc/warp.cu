@@ -1,7 +1,7 @@
 // Kernel A: bilinear perspective warp of a batch of channel-major frames onto
 // the mosaic canvas (frame -> canvas by H, sampled through G = H^-1).
 //
-// Replaces the Pallas TPU kernel rtvm_tpu/ops/pallas_warp.py:warp_two_pass_pallas
+// Replaces the Pallas TPU kernel, the pl.pallas_call of rtvm_tpu/ops/pallas_warp.py
 // (body _warp_kernel, helpers _resample_block and _hat_combine). That kernel is
 // a two-pass Catmull-Smith resample built from 5-tap 0/1 selection matmuls on
 // the MXU, 128-lane padding and an x-major output, all TPU layout choices, and
@@ -18,7 +18,7 @@
 //
 // Numerics: f32 throughout. The position and blend arithmetic uses the _rn
 // intrinsics so nvcc cannot contract it into FMAs: the result is bitwise the
-// one the plain PyTorch version (ops/pallas_warp.py:warp_plain) computes op by
+// one the plain PyTorch version (ops/kernel_warp.py:warp_plain) computes op by
 // op, which chip_smoke.py checks.
 //
 // Bound: bytes. Per 360x640 frame it must read the frame (2.76 MB f32) and
@@ -44,7 +44,7 @@
 //   valid sample region (-1, wf) x (-1, hf), by more than the float32
 //   rounding of the per-pixel arithmetic can move a point, every pixel of the
 //   tile is zero: the block stores zeros and does nothing else. The rule is
-//   mirrored in ops/pallas_warp.py:tile_is_empty, which the tests hold sound
+//   mirrored in ops/kernel_warp.py:tile_is_empty, which the tests hold sound
 //   against warp_plain. Every other tile runs the per-pixel path.
 // Frame reads go through __ldg (the read-only path); they are spatially local
 // and are served by L1/L2. No shared-memory staging of the source footprint.
@@ -66,7 +66,7 @@
 // samples outside (-1, wf) x (-1, hf), for the float32 arithmetic below.
 // Corners in double, compared as num <= bound * den (den > 0) to spare the
 // divisions; the rounding margins in float. Keep in step with
-// ops/pallas_warp.py:tile_is_empty.
+// ops/kernel_warp.py:tile_is_empty.
 static __device__ __forceinline__ bool tile_is_empty(const float* g, int xa, int ya, int xb,
                                                      int yb, int hf, int wf) {
   const float eps = 1.0f / 8388608.0f;  // 2^-23: twice float32's unit roundoff

@@ -1,12 +1,16 @@
 """Device selection: ``cuda`` unless the caller asks for something else.
 
 There is no quiet fallback to the CPU. A public entry point that is given no
-device runs on the card, and raises when there is none.
+device runs on the card, and raises when there is none. ``upload_frames`` is
+the one copy of host frames to the device.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from rtvm_tpu_torch.utils.timing import count, span
 
 
 def resolve_device(device=None) -> torch.device:
@@ -20,3 +24,17 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def upload_frames(frames, device: torch.device) -> torch.Tensor:
+    """Frames as uint8 on `device`. Host frames are one copy, in the span
+    ``upload`` with its count ``bytes``; a tensor already on that kind of
+    device opens no span."""
+    if isinstance(frames, torch.Tensor) and frames.device.type == device.type:
+        return frames.to(device=device, dtype=torch.uint8)
+    with span("upload"):
+        if not isinstance(frames, torch.Tensor):
+            frames = np.asarray(frames)
+        out = torch.as_tensor(frames, dtype=torch.uint8).to(device)
+        count("bytes", out.numel())
+    return out

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from rtvm_tpu_torch.config import MosaicConfig
-from rtvm_tpu_torch.device import resolve_device
+from rtvm_tpu_torch.device import resolve_device, upload_frames
 from rtvm_tpu_torch.geometry import homography as geo
 from rtvm_tpu_torch.io.jpeg import imwrite_jpg
 from rtvm_tpu_torch.ops import color
@@ -42,9 +42,9 @@ from rtvm_tpu_torch.ops import warp as warp_ops
 from rtvm_tpu_torch.ops.features import fast as fast_ops
 from rtvm_tpu_torch.ops.features import orb as orb_ops
 from rtvm_tpu_torch.ops.features import sift as sift_ops
-from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch
+from rtvm_tpu_torch.ops.kernel_warp import inverse_maps, warp_batch
 from rtvm_tpu_torch.utils import draw
-from rtvm_tpu_torch.utils.timing import count, span
+from rtvm_tpu_torch.utils.timing import span
 
 class MosaicState(NamedTuple):
     """Full resumable pipeline state (the same fields as the JAX package's)."""
@@ -70,7 +70,6 @@ class WindowAux(NamedTuple):
     H_abs: torch.Tensor  # [B, 3, 3] absolute homographies (frame -> canvas)
     ok: torch.Tensor  # [B] bool homography accepted (vs identity fallback)
     blended: torch.Tensor  # [B] bool frame was painted (False: match/RANSAC failure)
-    two_pass: torch.Tensor  # [B] bool H lies in the JAX two-pass warp's regime
 
 
 def state_from_numpy(snap: dict, device) -> MosaicState:
@@ -320,11 +319,8 @@ def make_step_body(frame_shape: Tuple[int, int, int], cfg: MosaicConfig):
             kp=kp_l, desc=desc_l, kp_valid=valid_l, hbuf=hbuf, hcount=hcount,
             frame_idx=state.frame_idx + b,
         )
-        aux = WindowAux(
-            num_matches=torch.sum(mvalid, dim=-1), num_inliers=res.num_inliers,
-            H_abs=H_abs_seq, ok=ok_seq, blended=blended_seq,
-            two_pass=warp_ops.two_pass_regime_ok(H_abs_seq, hc, wc),
-        )
+        aux = WindowAux(num_matches=torch.sum(mvalid, dim=-1), num_inliers=res.num_inliers,
+                        H_abs=H_abs_seq, ok=ok_seq, blended=blended_seq)
         return new_state, aux
 
     return step
@@ -425,19 +421,11 @@ class VideMosaic:
         self._clip = make_clip_step(self.frame_shape, config)
         self.state = self._init_state(first_image)
 
-    def _frames(self, frames) -> torch.Tensor:
-        if isinstance(frames, torch.Tensor):
-            return frames.to(device=self.device, dtype=torch.uint8)
-        with span("upload"):  # host frames: one copy to the device
-            out = torch.as_tensor(np.asarray(frames), dtype=torch.uint8).to(self.device)
-            count("bytes", out.numel())
-        return out
-
     def _init_state(self, first_image: np.ndarray) -> MosaicState:
         h, w, c = self.frame_shape
         hc, wc, _ = self.canvas_shape
         dev = self.device
-        f = self._frames(first_image)
+        f = upload_frames(first_image, self.device)
         kp, desc, valid = _extract_features(color.bgr2gray(f)[None], self.config)
         canvas = torch.zeros((c, hc, wc), dtype=torch.float32, device=dev)
         canvas[:, self.w_offset : self.w_offset + h, self.h_offset : self.h_offset + w] = (
@@ -464,7 +452,7 @@ class VideMosaic:
         `uniforms` optionally gives the pairs' RANSAC draws (see make_step_body).
         With auto_grow the canvas grows after the step when the window came
         near an edge (``_maybe_grow``: one read of the window's H_abs)."""
-        frames = self._frames(frames)
+        frames = upload_frames(frames, self.device)
         self.state, aux = self._step(
             self.state, frames, self.seed, self._fweight, self._wtable, uniforms
         )
@@ -554,13 +542,13 @@ class VideMosaic:
         beforehand (mosaic/prescan.py)."""
         clip = self._clip if det_fn is None else make_clip_step(self.frame_shape, self.config,
                                                                 det_fn)
-        self.state, *out = clip(self.state, self._frames(windows), self.seed, self._fweight,
-                                self._wtable)
+        self.state, *out = clip(self.state, upload_frames(windows, self.device), self.seed,
+                                self._fweight, self._wtable)
         return out[0] if det_fn is None else tuple(out)
 
     def process_frame(self, frame_cur, frame_count: int = 0) -> bool:
         """Single-frame path. Returns True if the frame's homography was accepted."""
-        aux = self.process_window(self._frames(frame_cur)[None])
+        aux = self.process_window(upload_frames(frame_cur, self.device)[None])
         return bool(aux.ok[0])
 
     @property
@@ -598,7 +586,7 @@ class VideMosaic:
         and a line between them, in colours drawn from
         ``np.random.RandomState(0)`` in the JAX class's order. The features
         and matches are recomputed on the device and read once."""
-        fc, fp = self._frames(frame_cur), self._frames(frame_prev)
+        fc, fp = upload_frames(frame_cur, self.device), upload_frames(frame_prev, self.device)
         kp, desc, valid = _extract_features(color.bgr2gray(torch.stack([fc, fp])), self.config)
         m = _match_pairs(desc[:1], valid[:1], desc[1:], valid[1:], self.config)
         src, dst, ok = match_ops.gather_correspondences(kp[:1], kp[1:], m)
@@ -655,8 +643,8 @@ class VideMosaic:
 
     def process_first_frame(self, first_image) -> None:
         """Make `first_image`'s features the next match target."""
-        kp, desc, valid = _extract_features(color.bgr2gray(self._frames(first_image))[None],
-                                            self.config)
+        gray = color.bgr2gray(upload_frames(first_image, self.device))
+        kp, desc, valid = _extract_features(gray[None], self.config)
         self.state = self.state._replace(kp=kp[0], desc=desc[0], kp_valid=valid[0])
 
     def match(self, des_cur, des_prev, valid_cur=None, valid_prev=None) -> match_ops.Matches:
@@ -698,7 +686,7 @@ class VideMosaic:
         and blend it in against the mosaic's union weight; updates the canvas
         and its coarse union. Returns output_img."""
         hc, wc = self.canvas_shape[0], self.canvas_shape[1]
-        frame_cm = self._frames(frame_cur).to(torch.float32).permute(2, 0, 1)
+        frame_cm = upload_frames(frame_cur, self.device).to(torch.float32).permute(2, 0, 1)
         new_px, w_new = warp_ops.warp_frame_cm(frame_cm, self._fweight, self._h(H), hc, wc)
         w_old = warp_ops.union_weight(self.state.canvas, self.state.union_coarse, hc, wc)
         canvas, _ = warp_ops._blend_cm(self.state.canvas, w_old, new_px, w_new)

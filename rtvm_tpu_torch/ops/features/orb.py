@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from rtvm_tpu_torch.ops.filters import gaussian_blur
-from rtvm_tpu_torch.ops.pallas_patches import extract_patches_plain
+from rtvm_tpu_torch.ops.kernel_patches import extract_patches_plain
 
 PATCH = 32  # patch side; radius 15 covers the rotated 13-px pattern at any angle
 N_ANGLE_BINS = 32

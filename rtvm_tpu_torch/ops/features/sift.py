@@ -8,7 +8,7 @@ batched over frames: every function takes a leading batch axis B.
 - DoG extrema: 3x3x3 max/min test, contrast threshold, exact blocked top-k,
   a point-wise Hessian edge test and 2D subpixel refinement.
 - Descriptor patches of every octave are cut by kernel B in one call
-  (``ops/pallas_patches.py:extract_patches_octaves``).
+  (``ops/kernel_patches.py:extract_patches_octaves``).
 - Orientation (36-bin histogram) and 4x4x8 descriptors use the JAX package's
   static rotated spatial weight tables. The JAX version rounds some operands to
   bfloat16 before its matrix products; the same roundings are reproduced here
@@ -26,7 +26,7 @@ import torch
 
 from rtvm_tpu_torch.ops.features.fast import topk2d_blocked
 from rtvm_tpu_torch.ops.filters import band_matrix, gaussian_blur, gaussian_kernel1d, minmaxpool3x3
-from rtvm_tpu_torch.ops.pallas_patches import extract_patches_octaves
+from rtvm_tpu_torch.ops.kernel_patches import extract_patches_octaves
 
 PATCH = 32  # descriptor patch side (octave pixels)
 N_ROT_BINS = 16  # quantized keypoint-angle bins for the spatial weight tables

@@ -18,9 +18,9 @@ from rtvm_tpu_torch import kernels
 PATCH = 32  # the only patch side the kernel is compiled for
 MAX_OCTAVES = 8  # RTVM_OCT_MAX in csrc/patches.cu
 
-# codes of the C entry point besides CUDA's own
-_ERRORS = {-1: "the CUDA driver has no cuTensorMapEncodeTiled",
-           -2: "cuTensorMapEncodeTiled refused a stack"}
+_launch = kernels.Entry("patches", "rtvm_extract_patches_octaves", "ipip",
+                       {-1: "the CUDA driver has no cuTensorMapEncodeTiled",
+                        -2: "cuTensorMapEncodeTiled refused a stack"})
 
 
 def extract_patches_plain(stack: torch.Tensor, ys: torch.Tensor, xs: torch.Tensor,
@@ -124,13 +124,7 @@ def extract_patches_octaves(stacks, ys, xs, patch: int = PATCH) -> torch.Tensor:
     if b == 0 or sum(qs) == 0:
         return out
     packed = array.array("q", args)  # int64s; alive until the call returns
-    code = kernels.library().rtvm_extract_patches_octaves(
-        len(stacks), packed.buffer_info()[0], b, out.data_ptr(), kernels.stream_handle(dev),
-    )
-    if code in _ERRORS:
-        raise RuntimeError(f"rtvm_extract_patches_octaves: {_ERRORS[code]}")
-    kernels.check(code, "rtvm_extract_patches_octaves")
-    kernels.launches["patches"] += 1
+    _launch(dev, len(stacks), packed.buffer_info()[0], b, out.data_ptr())
     return out
 
 

@@ -1,9 +1,10 @@
 """Kernel A: the perspective warp that paints every frame.
 
-Counterpart of ``rtvm_tpu/ops/pallas_warp.py:warp_two_pass_pallas``. The CUDA
-kernel is ``csrc/warp.cu`` (a direct inverse-map bilinear warp that skips the
-canvas tiles no sample point of the frame reaches; see its header for the
-design and bound); ``warp_plain`` is the same function as PyTorch indexing.
+Counterpart of the ``pl.pallas_call`` of ``rtvm_tpu/ops/pallas_warp.py`` (kernel
+body ``_warp_kernel``). The CUDA kernel is ``csrc/warp.cu`` (a direct
+inverse-map bilinear warp that skips the canvas tiles no sample point of the
+frame reaches; see its header for the design and bound); ``warp_plain`` is the
+same function as PyTorch indexing.
 ``warp_batch`` launches the kernel for a CUDA tensor, one launch for the whole
 batch with G read from device memory, and takes the plain version only for a
 CPU tensor. ``tile_is_empty`` is the kernel's tile-skip rule in Python.
@@ -24,6 +25,8 @@ import math
 import torch
 
 from rtvm_tpu_torch import kernels
+
+_launch = kernels.Entry("warp", "rtvm_warp_bilinear", "pppiiiiiii")
 
 
 def inverse_maps(H: torch.Tensor) -> torch.Tensor:
@@ -100,12 +103,8 @@ def warp_batch(frames: torch.Tensor, G: torch.Tensor, out_h: int, out_w: int,
     if b == 0:
         return out
     g = G.reshape(b, 9).contiguous()
-    code = kernels.library().rtvm_warp_bilinear(
-        frames.data_ptr(), g.data_ptr(), out.data_ptr(), b, c, hf, wf, out_h, out_w, row0,
-        kernels.stream_handle(frames.device),
-    )
-    kernels.check(code, "rtvm_warp_bilinear")
-    kernels.launches["warp"] += 1
+    _launch(frames.device, frames.data_ptr(), g.data_ptr(), out.data_ptr(), b, c, hf, wf, out_h,
+            out_w, row0)
     return out
 
 

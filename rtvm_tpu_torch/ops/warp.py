@@ -10,7 +10,7 @@ keeps the mosaic mask as a coarse 4-px occupancy grid with an exact chamfer
 transform, and applies the smoothed weights elementwise. All of it is the same
 here, batched over a leading frame axis where the JAX stitcher vmaps it.
 
-The warp itself is kernel A (``ops/pallas_warp.py``); the union distance is
+The warp itself is kernel A (``ops/kernel_warp.py``); the union distance is
 kernel C (``csrc/union.cu``) and the analytic frame weight kernel D
 (``csrc/weight.cu``) for CUDA tensors. ``_warp_gather_cm`` is
 the JAX package's exact out-of-regime warp, kept as a reference for tests.
@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from rtvm_tpu_torch import kernels
 from rtvm_tpu_torch.ops.filters import gaussian_blur
-from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch
+from rtvm_tpu_torch.ops.kernel_warp import inverse_maps, warp_batch
 from rtvm_tpu_torch.ops.sampling import bilinear_sample
 
 CELL_PX = 4  # coarse union-occupancy cell size (px)
@@ -119,6 +119,9 @@ def coarse_union_distance_plain(union: torch.Tensor,
     return (torch.cat(out) * cell_px).reshape(*lead, gh, gw)
 
 
+_union = kernels.Entry("union", "rtvm_union_distance", "pppiiifff")
+
+
 def coarse_union_distance(union: torch.Tensor, cell_px: float = float(CELL_PX)) -> torch.Tensor:
     """coarse_union_distance_plain's function: kernel C (``csrc/union.cu``)
     for a CUDA tensor, bitwise the plain version, one launch for all the
@@ -139,11 +142,8 @@ def coarse_union_distance(union: torch.Tensor, cell_px: float = float(CELL_PX)) 
     if out.numel() == 0:
         return out
     scratch = torch.empty_like(out)
-    code = kernels.library().rtvm_union_distance(
-        union.data_ptr(), scratch.data_ptr(), out.data_ptr(), out.numel() // (gh * gw), gh, gw,
-        CHAMFER_A, CHAMFER_B, cell_px, kernels.stream_handle(union.device))
-    kernels.check(code, "rtvm_union_distance")
-    kernels.launches["union"] += 1
+    _union(union.device, union.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+           out.numel() // (gh * gw), gh, gw, CHAMFER_A, CHAMFER_B, cell_px)
     return out
 
 
@@ -317,6 +317,7 @@ def frame_weight_eval_plain(params: tuple, hc: int, wc: int, row0: int = 0,
 _INV_CHAMFER_A = float(np.float32(1.0) / np.float32(CHAMFER_A))
 _INV_CHAMFER_B = float(np.float32(1.0) / np.float32(CHAMFER_B))
 _WEIGHT_MAX_SEGMENTS = 32  # kernel D's shared-memory table (frame_weight_params makes 20)
+_weight = kernels.Entry("weight", "rtvm_frame_weight", "pppppiiiiiiffff")
 
 
 def frame_weight_eval(params: tuple, hc: int, wc: int, row0: int = 0,
@@ -353,12 +354,9 @@ def frame_weight_eval(params: tuple, hc: int, wc: int, row0: int = 0,
     out = torch.empty((b, rows, wc), dtype=torch.float32, device=segs.device)
     if out.numel() == 0:
         return out
-    code = kernels.library().rtvm_frame_weight(
-        segs.data_ptr(), seg_ok.data_ptr(), planes.data_ptr(), ok_orient.data_ptr(),
-        out.data_ptr(), b, s, hc, wc, row0, rows, CHAMFER_A, CHAMFER_B, _INV_CHAMFER_A,
-        _INV_CHAMFER_B, kernels.stream_handle(segs.device))
-    kernels.check(code, "rtvm_frame_weight")
-    kernels.launches["weight"] += 1
+    _weight(segs.device, segs.data_ptr(), seg_ok.data_ptr(), planes.data_ptr(),
+            ok_orient.data_ptr(), out.data_ptr(), b, s, hc, wc, row0, rows, CHAMFER_A, CHAMFER_B,
+            _INV_CHAMFER_A, _INV_CHAMFER_B)
     return out
 
 
@@ -458,51 +456,6 @@ def blend_apply_cm(canvas, new_px, w_new, w_old, alpha_s, beta_s) -> torch.Tenso
     blended = alpha_s[None] * new_px + beta_s[None] * canvas
     return torch.where((has_new & has_old)[None], blended,
                        torch.where(has_new[None], new_px, canvas))
-
-
-def two_pass_regime_ok(H: torch.Tensor, out_h: int, out_w: int, rb: int = 16) -> torch.Tensor:
-    """bool [...] for H [..., 3, 3]: whether the JAX package's two-pass warp
-    would be exact for H (small perspective, bounded pass slopes, sub-pixel
-    within-block deviation). The port's warp has no regime limit; this only
-    keeps ``WindowAux.two_pass`` meaning what it means in the JAX package."""
-    G = torch.linalg.inv_ex(H)[0]
-
-    def e(M, i, j):
-        return M[..., i, j]
-
-    persp_ok = ((e(H, 2, 0).abs() < 2e-4) & (e(H, 2, 1).abs() < 2e-4)
-                & (e(G, 2, 0).abs() < 2e-4) & (e(G, 2, 1).abs() < 2e-4))
-
-    def safe(d, eps=1e-9):
-        return torch.where(d.abs() < eps, torch.full_like(d, eps), d)
-
-    def u(y, X):
-        num = (e(H, 0, 1) * y + e(H, 0, 2)) - X * (e(H, 2, 1) * y + e(H, 2, 2))
-        return num / safe(e(H, 2, 0) * X - e(H, 0, 0))
-
-    def v(X, Y):
-        den = e(G, 2, 0) * X + e(G, 2, 1) * Y + e(G, 2, 2)
-        return (e(G, 1, 0) * X + e(G, 1, 1) * Y + e(G, 1, 2)) / safe(den)
-
-    d1 = rb / 2.0
-    dev1 = torch.maximum(*[
-        ((u(y + d1, float(out_w)) - u(y, float(out_w))) - (u(y + d1, 0.0) - u(y, 0.0))).abs()
-        for y in (0.0, float(out_h))
-    ])
-    dev2 = torch.maximum(*[
-        ((v(X + d1, float(out_h)) - v(X, float(out_h))) - (v(X + d1, 0.0) - v(X, 0.0))).abs()
-        for X in (0.0, float(out_w))
-    ])
-    persp_ok = persp_ok & (dev1 < 0.99) & (dev2 < 0.99)
-    s1a = e(H, 2, 2) / safe(e(H, 0, 0))
-    s1b = (e(H, 2, 1) * out_h + e(H, 2, 2)) / safe(e(H, 0, 0) - e(H, 2, 0) * out_w)
-    s2a = e(G, 1, 1) / safe(e(G, 2, 2))
-    s2b = e(G, 1, 1) / safe(e(G, 2, 0) * out_w + e(G, 2, 2))
-    lo, hi = 0.72, 1.40
-    slope_ok = ((s1a > lo) & (s1a < hi) & (s1b > lo) & (s1b < hi)
-                & (s2a > lo) & (s2a < hi) & (s2b > lo) & (s2b < hi))
-    finite = torch.isfinite(H).flatten(-2).all(-1) & torch.isfinite(G).flatten(-2).all(-1)
-    return finite & persp_ok & slope_ok
 
 
 def _warp_gather_cm(stack: torch.Tensor, H: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

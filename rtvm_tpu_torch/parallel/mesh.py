@@ -290,10 +290,8 @@ def make_sharded_window_step(frame_shape, cfg: MosaicConfig, mesh):
             kp=kp_l, desc=desc_l, kp_valid=valid_l, hbuf=hbuf, hcount=hcount,
             frame_idx=state.frame_idx + nb,
         )
-        aux = S.WindowAux(
-            num_matches=num_matches, num_inliers=num_inliers, H_abs=H_abs, ok=ok_seq,
-            blended=blended, two_pass=warp_ops.two_pass_regime_ok(H_abs, hc, wc),
-        )
+        aux = S.WindowAux(num_matches=num_matches, num_inliers=num_inliers, H_abs=H_abs,
+                          ok=ok_seq, blended=blended)
         return new_state, aux
 
     step.band, step.rows = band, ((l, h), (lo, hi))

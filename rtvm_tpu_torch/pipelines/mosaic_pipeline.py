@@ -37,25 +37,17 @@ import numpy as np
 import torch
 
 from rtvm_tpu_torch.config import MosaicConfig, PipelineConfig
-from rtvm_tpu_torch.device import resolve_device
+from rtvm_tpu_torch.device import resolve_device, upload_frames
 from rtvm_tpu_torch.io.jpeg import imwrite_jpg
 from rtvm_tpu_torch.io.video import VideoReader
 from rtvm_tpu_torch.mosaic.stitcher import VideMosaic, WindowAux
 from rtvm_tpu_torch.utils.image import crop_black_areas, scale_to_screen
-from rtvm_tpu_torch.utils.timing import StageTimer, count, span
+from rtvm_tpu_torch.utils.timing import StageTimer
 
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def _upload(frames, dev: torch.device) -> torch.Tensor:
-    """Host frames to the device, in the span ``upload`` with its bytes."""
-    with span("upload"):
-        out = torch.as_tensor(frames).to(dev)
-        count("bytes", out.numel() * out.element_size())
-    return out
 
 
 def _rereadable(source):
@@ -163,7 +155,7 @@ def run_mosaic(
     for frames, n_valid in reader.windows():
         timer.request = windows
         with timer.stage("window") as rec:
-            win = _upload(frames, dev)
+            win = upload_frames(frames, dev)
             aux = mosaic.process_window(win)
             timer.mark_done(rec)
         aux_pending.append((aux, n_valid))
@@ -197,17 +189,15 @@ def run_mosaic(
     elapsed = time.perf_counter() - t0
     timer.request = None
     timer.resolve_done()
-    ok_frames = two_pass_frames = 0
+    ok_frames = 0
     if aux_pending:
-        flags = torch.stack([torch.stack([a.ok, a.two_pass]) for a, _ in aux_pending]).cpu().numpy()
-        for (ok, two_pass), (_, n_valid) in zip(flags, aux_pending):
+        flags = torch.stack([a.ok for a, _ in aux_pending]).cpu().numpy()
+        for ok, (_, n_valid) in zip(flags, aux_pending):
             ok_frames += int(ok[:n_valid].sum())
-            two_pass_frames += int(two_pass[:n_valid].sum())
 
     stats = {
         "frames": frame_count,
         "accepted": ok_frames,
-        "two_pass_frames": two_pass_frames,
         "elapsed_s": elapsed,
         "fps": frame_count / elapsed if elapsed > 0 else 0.0,
     }
@@ -264,7 +254,7 @@ def _run_mosaic_fused(
     def dispatch(windows):
         nonlocal n_full
         with timer.stage("clip") as rec:
-            out = mosaic.process_clip(_upload(np.stack(windows), dev), det_fn=det_fn)
+            out = mosaic.process_clip(upload_frames(np.stack(windows), dev), det_fn=det_fn)
             timer.mark_done(rec)
             a, d = out if det_fn is not None else (out, None)
             auxes.append(a)
@@ -306,7 +296,7 @@ def _run_mosaic_fused(
     tail_ok = 0
     for frames, n_valid in tail:
         with timer.stage("window") as rec:
-            tail_aux = mosaic.process_window(_upload(frames, dev))
+            tail_aux = mosaic.process_window(upload_frames(frames, dev))
             timer.mark_done(rec)
         tail_ok += int(tail_aux.ok[:n_valid].sum())
     _sync(dev)

@@ -189,7 +189,7 @@ def test_sharded_window_step_equals_one_process(ranks4, name):
     cases, out, _ = ranks4
     got = out[name][0]
     want = M.single_window_run(cases[name], device="cpu")
-    for k in ("ok", "blended", "H_abs", "num_inliers", "num_matches", "two_pass", "H_old",
+    for k in ("ok", "blended", "H_abs", "num_inliers", "num_matches", "H_old",
               "hbuf", "kp", "desc", "kp_valid", "union_coarse"):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     assert got["frame_idx"] == want["frame_idx"] == 9 and got["hcount"] == want["hcount"]
@@ -222,7 +222,7 @@ def test_each_rank_holds_its_band_and_halo(ranks4):
             assert a - lo <= 48 and hi - b <= 50
             assert res["frames_local"][0] == 8 // dp
             # plain versions on the CPU
-            assert res["launches"] == {"warp": 0, "patches": 0, "union": 0, "weight": 0}
+            assert not any(res["launches"].values()), res["launches"]
         if name.startswith("tall"):
             assert max(hi - lo for (_, _), (lo, hi) in (r["rows"] for r in ranks)) <= 0.7 * hc
 

@@ -323,8 +323,8 @@ import importlib, os, py_compile
 mods = ["rtvm_tpu_torch", "rtvm_tpu_torch.config", "rtvm_tpu_torch.device",
         "rtvm_tpu_torch.kernels", "rtvm_tpu_torch.ops.color", "rtvm_tpu_torch.ops.filters",
         "rtvm_tpu_torch.ops.sampling", "rtvm_tpu_torch.ops.features.fast",
-        "rtvm_tpu_torch.ops.features.sift", "rtvm_tpu_torch.ops.pallas_patches",
-        "rtvm_tpu_torch.ops.pallas_warp", "rtvm_tpu_torch.ops.match",
+        "rtvm_tpu_torch.ops.features.sift", "rtvm_tpu_torch.ops.kernel_patches",
+        "rtvm_tpu_torch.ops.kernel_warp", "rtvm_tpu_torch.ops.match",
         "rtvm_tpu_torch.ops.warp", "rtvm_tpu_torch.geometry.homography",
         "rtvm_tpu_torch.mosaic.stitcher", "rtvm_tpu_torch.ops.features.orb",
         "rtvm_tpu_torch.entry", "rtvm_tpu_torch.detect.classes",

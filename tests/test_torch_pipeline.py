@@ -245,7 +245,7 @@ def test_maybe_grow_matches_jax(grow_pair, H_abs, blended):
     jaux = JaxAux(*(np.zeros(b, np.int32),) * 2, H_abs, np.ones(b, bool), np.array(blended),
                   np.ones(b, bool))
     taux = WindowAux(*(torch.zeros(b, dtype=torch.int64),) * 2, torch.from_numpy(H_abs),
-                     torch.ones(b, dtype=torch.bool), torch.tensor(blended), torch.ones(b, dtype=torch.bool))
+                     torch.ones(b, dtype=torch.bool), torch.tensor(blended))
     pad_j, pad_t = jm._maybe_grow(jaux), tm._maybe_grow(taux)
     assert pad_t == pad_j
     assert (tm.canvas_shape, tm.w_offset, tm.h_offset) == (jm.canvas_shape, jm.w_offset, jm.h_offset)

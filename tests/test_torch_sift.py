@@ -13,7 +13,7 @@ from rtvm_tpu.ops.features import sift as JSF
 from rtvm_tpu.ops.pallas_patches import extract_patches_pallas
 from rtvm_tpu_torch.config import FeatureConfig as TFeatureConfig
 from rtvm_tpu_torch.ops.features import sift as TSF
-from rtvm_tpu_torch.ops.pallas_patches import (MAX_OCTAVES, extract_patches, extract_patches_octaves,
+from rtvm_tpu_torch.ops.kernel_patches import (MAX_OCTAVES, extract_patches, extract_patches_octaves,
                                                extract_patches_octaves_plain, extract_patches_plain,
                                                tma_constraints)
 

@@ -401,8 +401,9 @@ def test_every_public_member_of_the_jax_class_is_here():
 
 def test_the_jax_warp_api_is_here():
     """Every public function of the JAX ops/warp.py but the XLA two-pass
-    tier (TPU layout, not carried over) has a counterpart."""
-    tpu_layout = {"warp_two_pass", "pallas_regime_ok"}
+    tier and its regime flags (TPU layout, not carried over) has a
+    counterpart."""
+    tpu_layout = {"warp_two_pass", "pallas_regime_ok", "two_pass_regime_ok"}
     public = {n for n, v in vars(jwarp).items() if inspect.isfunction(v) and not n.startswith("_")
               and v.__module__ == jwarp.__name__}
     missing = public - tpu_layout - set(dir(twarp))

@@ -14,10 +14,8 @@ rtvm_tpu_torch package of another checkout (the root of an unpacked commit)
 and times, on those inputs:
   - warp: the checkout's warp_batch (G = H_abs^-1 on the card) through its
     wrapper (CUDA events over back-to-back calls) and on the card (profiler);
-  - patches: the patch cut of one window as that checkout's SIFT does it:
-    with extract_patches_octaves, one call; without it (older checkouts), one
-    extract_patches call per octave on a contiguous copy of the stack and a
-    torch.cat of the four results. "kernel" counts only the patch kernels'
+  - patches: the patch cut of one window as that checkout's SIFT does it,
+    one extract_patches_octaves call. "kernel" counts only the patch kernels'
     time on the card; "path" is the host-clock time of the whole cut.
 Prints one JSON line. Imports torch, numpy and the checkout's package only.
 
@@ -74,8 +72,9 @@ def time_tree(path: str, tree: str, label: str) -> None:
     import torch
 
     from rtvm_tpu_torch import kernels
-    from rtvm_tpu_torch.ops import pallas_patches as pp
-    from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch, warp_plain
+
+    from rtvm_tpu_torch.ops import kernel_patches as pp
+    from rtvm_tpu_torch.ops.kernel_warp import inverse_maps, warp_batch, warp_plain
 
     dev = torch.device("cuda")
     d = torch.load(path)
@@ -93,13 +92,8 @@ def time_tree(path: str, tree: str, label: str) -> None:
     ys = [y.to(dev) for y in d["ys"]]
     xs = [x.to(dev) for x in d["xs"]]
 
-    if hasattr(pp, "extract_patches_octaves"):
-        def cut():
-            return pp.extract_patches_octaves(stacks, ys, xs)
-    else:
-        def cut():
-            return torch.cat([pp.extract_patches(st.contiguous(), y, x)
-                              for st, y, x in zip(stacks, ys, xs)], dim=1)
+    def cut():
+        return pp.extract_patches_octaves(stacks, ys, xs)
 
     kernels.library()
     ref = torch.cat([pp.extract_patches_plain(st, y, x) for st, y, x in zip(stacks, ys, xs)], 1)

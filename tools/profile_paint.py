@@ -64,7 +64,7 @@ def main() -> int:
     from rtvm_tpu_torch.mosaic import stitcher as S
     from rtvm_tpu_torch.mosaic.prescan import prescan_canvas
     from rtvm_tpu_torch.ops import warp as W
-    from rtvm_tpu_torch.ops.pallas_warp import inverse_maps, warp_batch
+    from rtvm_tpu_torch.ops.kernel_warp import inverse_maps, warp_batch
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
