@@ -27,7 +27,12 @@ Phases, each printed with its result and seconds on its own line:
      against its plain version run on the card, bit for bit, on window 1's
      H_abs at 720x768, an orbit window at the fused 2216x2432 canvas and
      its bands, and edge quads at both, timed beside it with its bound,
-     its registers and spills and its launch count;
+     its registers and spills and its launch count; then kernel E (phase
+     `blend`, the blend weights' 31-tap blur) against its plain version on
+     the card, within BLEND_GAP, on the paint's weights of orbit windows at
+     720x768 and 2216x2432, with bands of rows bit for bit the whole map's
+     rows and strided inputs bit for bit their contiguous copies, timed
+     beside the plain version and a library blur with its bound;
   6. the ORB window step (BASELINE config 1), the same clip and checks, with
      kernel A as its only kernel;
   7. the detection of BASELINE config 3, for YOLOv8n and then YOLO11n: the
@@ -202,8 +207,8 @@ def phase(name: str, t0: float, result: str) -> None:
 
 
 # the kernels that launch once a window step: the paint's warp (A), union
-# (C) and frame weight (D)
-PAINT_KERNELS = ("warp", "union", "weight")
+# (C), frame weight (D) and blend-weight blur (E)
+PAINT_KERNELS = ("warp", "union", "weight", "blend")
 # the launch counts of paths that neither paint nor cut SIFT patches
 NO_LAUNCHES: dict = {}
 
@@ -732,6 +737,128 @@ def phase_weight(torch, dev, regs: dict, live_H) -> dict:
             "by_shape": by_shape}
 
 
+# Kernel E against the plain version on the card, largest |d| of alpha_s and
+# beta_s: the plain version's cuBLAS band product may sum in another order
+# than the kernel's chain of fused multiply-adds (the maps are in [0, 1]; on
+# an H100, 700 W, both have read bit for bit the same).
+BLEND_GAP = 1e-6
+# float32 operations an element: 2 x 62 multiply-adds (31 a row, 31 a column,
+# alpha and the region), two adds and a division (counted as 8) for alpha,
+# two tests and an or for the region, beta's difference
+BLEND_OPS = 2 * 62 + 2 + 8 + 3 + 1
+BLEND_BANDS = ((0, 300), (17, 300), (420, 720), (600, 1000), (1700, 2216), (1000, 1031))  # rows [l, h)
+
+
+def blend_weights_library(torch, w_new, w_old):
+    """The blend weights from PyTorch's own operators: replicate padding and
+    a 1 x 31 then a 31 x 1 convolution with the taps (the yardstick for
+    kernel E, never the port's route)."""
+    from rtvm_tpu_torch.ops import warp as warp_ops
+    from rtvm_tpu_torch.ops.filters import gaussian_kernel1d
+
+    F = torch.nn.functional
+    r = warp_ops.BLEND_SMOOTH_RADIUS
+    taps = torch.from_numpy(gaussian_kernel1d(warp_ops.BLEND_SMOOTH_SIGMA, r)).to(w_new.device)
+    n, rows, cols = w_new.shape
+    alpha = w_new / (w_new + w_old + 1e-6)
+    region = ((w_new > 0.0) | (w_old > 0.0)).to(torch.float32)
+    x = torch.stack([alpha, region], 1).reshape(2 * n, 1, rows, cols)
+    x = F.conv2d(F.pad(x, (r, r, 0, 0), mode="replicate"), taps.view(1, 1, 1, -1))
+    x = F.conv2d(F.pad(x, (0, 0, r, r), mode="replicate"), taps.view(1, 1, -1, 1))
+    a, g = x.reshape(n, 2, rows, cols).unbind(1)
+    return a, g - a
+
+
+def phase_blend(torch, dev, regs: dict) -> dict:
+    """Kernel E against blend_weights_smoothed_plain on the card, within
+    BLEND_GAP, on the paint's weights of orbit windows (the analytic frame
+    weights of 16 frames, and of the window before, as w_new and w_old) at
+    the live 720x768 and the fused 2216x2432 canvas; bands of rows, row- and
+    column-sliced inputs, bit for bit the whole map's rows and their
+    contiguous copies; then timed beside the plain version and the library's
+    blur, with its bound (bytes, or operations at the float32 rate without
+    multiply-add) and the ptxas report. Returns kernel E's row of the kernel
+    table (the fused window's numbers, the live's under by_shape)."""
+    from rtvm_tpu_torch import kernels
+    from rtvm_tpu_torch.ops.warp import (blend_weights_smoothed, blend_weights_smoothed_plain,
+                                         frame_weight_eval, frame_weight_params)
+
+    t0 = time.time()
+    name = "rtvm_blend_kernel"
+    r = 15
+
+    def same_bits(a, b):
+        return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def gap(got, want):
+        return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+    by_shape, notes = {}, []
+    for key, (hc, wc, hf, wf, seed) in {"live": (720, 768, FRAME_H, FRAME_W, SEED + 31),
+                                        "fused": (2216, 2432, STREAM_H, STREAM_W, SEED + 32)}.items():
+        w_new, w_old = (frame_weight_eval(frame_weight_params(
+            weight_window(torch, WINDOW, hc, wc, hf, wf, s).to(dev), hf, wf, hc, wc), hc, wc)
+            for s in (seed, seed + 1))
+        kernels.reset_launches()
+        got = blend_weights_smoothed(w_new, w_old)
+        check(kernels.launches["blend"] == 1, f"blend {key}: launches {kernels.launches}")
+        want = blend_weights_smoothed_plain(w_new, w_old)
+        d = gap(got, want)
+        check(d <= BLEND_GAP, f"blend {key}: kernel E {d} off the plain version")
+        equal = float(sum((g == w).float().mean() for g, w in zip(got, want)) / 2)
+        del want
+        for l, h in BLEND_BANDS:
+            if h > hc:
+                continue
+            band = blend_weights_smoothed(w_new[:, l:h], w_old[:, l:h])
+            a = r if l > 0 else 0
+            b = h - l - r if h < hc else h - l
+            check(all(same_bits(x[:, a:b], y[:, l + a : l + b]) for x, y in zip(band, got)),
+                  f"blend {key}: rows [{l + a}, {l + b}) of the band [{l}, {h}) differ from the "
+                  f"whole map's")
+        for sl in ((slice(None), slice(40, hc - 9)), (slice(None), slice(None), slice(3, wc - 2)),
+                   (slice(1, None, 3), slice(None), slice(5, wc))):
+            x, y = w_new[sl], w_old[sl]
+            check(all(same_bits(g, w) for g, w in zip(
+                blend_weights_smoothed(x, y), blend_weights_smoothed(x.contiguous(), y.contiguous()))),
+                f"blend {key}: the strided input {sl} differs from its contiguous copy")
+        ms = cuda_ms(torch, lambda: blend_weights_smoothed(w_new, w_old))
+        dev_ms = device_ms(torch, lambda: blend_weights_smoothed(w_new, w_old), name)
+        wrap_us = host_us(torch, lambda: blend_weights_smoothed(w_new, w_old))
+        plain_ms = cuda_ms(torch, lambda: blend_weights_smoothed_plain(w_new, w_old), reps=3,
+                           warmup=1)
+        lib_gap = gap(blend_weights_library(torch, w_new, w_old), got)
+        lib_ms = cuda_ms(torch, lambda: blend_weights_library(torch, w_new, w_old), reps=5)
+        elems = w_new.numel()
+        nops, nbytes = elems * BLEND_OPS, elems * 16
+        t_ops = nops / F32_NOFMA_OPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms, bound_by = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+        by_shape[key] = {"shape": list(w_new.shape), "max_abs_err": d, "equal_share": equal,
+                         "ms": ms, "device_ms": dev_ms, "host_us": wrap_us, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "library_gap": lib_gap, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "share_of_bound": bound_ms / (dev_ms or ms)}
+        notes.append(f"{key} {list(w_new.shape)}: {d:.3g} largest off the plain version (equal on "
+                     f"{equal:.4f}); kernel {ms:.4f} ms (on the card {fmt_ms(dev_ms)}; host "
+                     f"{wrap_us:.1f} us a call), plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms "
+                     f"({lib_gap:.3g} off), bound {bound_ms:.4f} ms ({bound_by}; {nops / 1e9:.2f} G "
+                     f"operations, {nbytes / 1e9:.3f} GB), {bound_ms / (dev_ms or ms):.3f} of it")
+        del w_new, w_old, got
+    rg = regs.get(name)
+    ptx = (f"{rg['registers']} registers, {rg['smem']} B static smem, stack {rg['stack']} B, "
+           f"spills {rg['spill_stores']}/{rg['spill_loads']} B" if rg else "no ptxas report")
+    phase("blend", t0, f"kernel E within {BLEND_GAP} of blend_weights_smoothed_plain on the card on "
+                       f"the paint's weights at 720x768 and 2216x2432; bands {list(BLEND_BANDS)} and "
+                       f"strided inputs bit for bit; one launch a call; " + "; ".join(notes)
+          + f"; {ptx}")
+    fused = by_shape["fused"]
+    return {"name": "blend_weights", "route": "cuda", "source": "rtvm_tpu_torch/csrc/blend.cu",
+            "replaces": "none (XLA fuses rtvm_tpu/ops/warp.py:blend_weights_smoothed on the TPU)",
+            "max_abs_err": fused["max_abs_err"], "ms": fused["ms"], "plain_ms": fused["plain_ms"],
+            "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
+            "library_ms": fused["library_ms"], "device_ms": fused["device_ms"], "by_shape": by_shape}
+
+
 def run_mosaic(torch, dev, frames: np.ndarray, detector: str, no_sync: bool = False):
     """VideMosaic on frames[0], then N_WINDOWS windows of WINDOW frames.
     With no_sync, windows 2.. run under CUDA's sync debug mode "error" (the
@@ -803,20 +930,23 @@ def phase_window(torch, dev, frames: np.ndarray, path: np.ndarray, card: str,
           f"{name}: canvas shape {tuple(canvas_k.shape)}")
     fps = (N_WINDOWS - 1) * WINDOW / sum(secs[1:])
 
-    # the same run with the plain versions in place of the four kernels
+    # the same run with the plain versions in place of the five kernels
     saved = (stitcher_mod.warp_batch, sift_mod.extract_patches_octaves,
-             warp_ops.coarse_union_distance, warp_ops.frame_weight_eval)
+             warp_ops.coarse_union_distance, warp_ops.frame_weight_eval,
+             warp_ops.blend_weights_smoothed)
     stitcher_mod.warp_batch = warp_plain
     sift_mod.extract_patches_octaves = extract_patches_octaves_plain
     warp_ops.coarse_union_distance = warp_ops.coarse_union_distance_plain
     warp_ops.frame_weight_eval = warp_ops.frame_weight_eval_plain
+    warp_ops.blend_weights_smoothed = warp_ops.blend_weights_smoothed_plain
     try:
         kernels.reset_launches()
         mp, auxs_p, secs_p = run_mosaic(torch, dev, frames, detector)
         check(sum(kernels.launches.values()) == 0, f"{name}: the plain run launched a kernel")
     finally:
         (stitcher_mod.warp_batch, sift_mod.extract_patches_octaves,
-         warp_ops.coarse_union_distance, warp_ops.frame_weight_eval) = saved
+         warp_ops.coarse_union_distance, warp_ops.frame_weight_eval,
+         warp_ops.blend_weights_smoothed) = saved
     mse = float(((canvas_k - mp.state.canvas) ** 2).mean())
     psnr = math.inf if mse == 0 else 10 * math.log10(255.0**2 / mse)
     check(psnr >= MIN_PSNR_DB, f"{name}: kernel vs plain canvas PSNR {psnr:.2f} dB < {MIN_PSNR_DB}")
@@ -3301,18 +3431,15 @@ MESH_H_REL = 1e-6
 MESH_CANVAS_MEAN, MESH_CANVAS_MAX = 0.5, 2.0
 MESH_EDGE_BAND = 50
 # On the (1, 4) mesh every rank extracts and fits the whole window, as one
-# process does, and only the paint is sharded: the state bitwise the
-# one-process step's, and the whole canvas, frame edges included, within
-# MESH_TP_CANVAS_TOL grey levels. Not bitwise: the blend weights' blur is a
-# product with a banded matrix (ops/filters.py:conv1d_edge), which cuBLAS
-# sums in another order for a band's rows than for the whole canvas's (the
-# phase's line shows it on blend_weights_smoothed alone; on the CPU both
-# are bitwise, tests/test_torch_mesh.py). On an H100, 700 W: the canvas
-# 3.81e-4 largest over 16 frames; a fault in a band or its halo moves
-# weights by 1e-2 or more.
+# process does, and only the paint is sharded: the state and the whole
+# canvas, frame edges included, bitwise the one-process step's
+# (MESH_TP_CANVAS_TOL 0). The blend weights' blur (kernel E, csrc/blend.cu)
+# sums each output in one fixed order, so a band's rows hold the whole
+# canvas's bits wherever its halo lies inside the band (the phase's witness
+# on blend_weights_smoothed alone reads 0).
 MESH_TP_FIELDS = ("ok", "blended", "H_abs", "num_inliers", "num_matches", "H_old",
                   "hbuf", "kp", "desc", "kp_valid", "union_coarse")
-MESH_TP_CANVAS_TOL = 1e-3
+MESH_TP_CANVAS_TOL = 0.0
 # Training (tests/test_torch_mesh.py's bounds): the loss relative, BatchNorm's
 # statistics, each weight within two Adam steps of lr (a gradient within
 # rounding of 0 may take either sign), the share of values more than 1e-5
@@ -3807,6 +3934,7 @@ def main() -> int:
             window_launches(N_WINDOWS, N_WINDOWS + 1))
         row_a = warp_real(torch, dev, frames[1 : 1 + WINDOW], sift_auxs[0].H_abs, hc, wc)
         row_d = phase_weight(torch, dev, regs, sift_auxs[0].H_abs)
+        row_e = phase_blend(torch, dev, regs)
         # ORB: one warp launch per window; its patches are uint8 cuts (no kernel)
         orb_counts = phase_window(torch, dev, frames, cam, card, "orb",
                                   window_launches(N_WINDOWS))[0]
@@ -3849,10 +3977,10 @@ def main() -> int:
             by_path["weights_pt"] = phase_weights_pt(torch, dev, tmp, frames[1:][DET_FRAMES], card)
         row_a["at_1080p"] = row_a_1080p
         for row, key in ((row_a, "warp"), (row_b, "patches"), (row_c, "union"),
-                         (row_d, "weight")):
+                         (row_d, "weight"), (row_e, "blend")):
             row["launches_by_path"] = {p: c.get(key, 0) for p, c in by_path.items()}
             row["launches"] = sum(row["launches_by_path"].values())
-        rows = [row_a, row_b, row_c, row_d]
+        rows = [row_a, row_b, row_c, row_d, row_e]
     except CheckFailed as e:
         say(f"FAIL: {e}")
         return 1

@@ -131,14 +131,14 @@ def stream_handle(device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "q": ctypes.c_longlong, "f": ctypes.c_float}
 
 
 class Entry:
     """A CUDA entry point of the kernel library. `name` counts its launches,
     `symbol` is its C name, `args` its argument types before the stream
-    that every entry takes last, one letter each (p pointer, i int, f
-    float), and `errors` the messages of its own non-zero codes."""
+    that every entry takes last, one letter each (p pointer, i int,
+    q 64-bit int, f float), and `errors` the messages of its own non-zero codes."""
 
     def __init__(self, name: str, symbol: str, args: str, errors=None):
         self.name, self.symbol, self.errors = name, symbol, dict(errors or {})

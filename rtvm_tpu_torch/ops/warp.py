@@ -11,8 +11,9 @@ transform, and applies the smoothed weights elementwise. All of it is the same
 here, batched over a leading frame axis where the JAX stitcher vmaps it.
 
 The warp itself is kernel A (``ops/kernel_warp.py``); the union distance is
-kernel C (``csrc/union.cu``) and the analytic frame weight kernel D
-(``csrc/weight.cu``) for CUDA tensors. ``_warp_gather_cm`` is
+kernel C (``csrc/union.cu``), the analytic frame weight kernel D
+(``csrc/weight.cu``) and the blend weights' blur kernel E (``csrc/blend.cu``)
+for CUDA tensors. ``_warp_gather_cm`` is
 the JAX package's exact out-of-regime warp, kept as a reference for tests.
 
 The standalone single-frame API of the JAX module is here too:
@@ -32,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from rtvm_tpu_torch import kernels
-from rtvm_tpu_torch.ops.filters import gaussian_blur
+from rtvm_tpu_torch.ops.filters import gaussian_blur, gaussian_kernel1d
 from rtvm_tpu_torch.ops.kernel_warp import inverse_maps, warp_batch
 from rtvm_tpu_torch.ops.sampling import bilinear_sample
 
@@ -435,16 +436,83 @@ def upsample_weight(coarse_px: torch.Tensor, hc: int, wc: int, cell: int = CELL_
     return up.reshape(*lead, (c1 - c0) * cell, gw * cell)[..., off : off + rows, :wc]
 
 
-def blend_weights_smoothed(w_new: torch.Tensor, w_old: torch.Tensor):
+def blend_weights_smoothed_plain(w_new: torch.Tensor, w_old: torch.Tensor):
     """Reference blend weights: normalized distance weights smoothed with a
     31x31 Gaussian and used WITHOUT renormalizing (near the union boundary
     their sum dips below 1: reference behaviour, kept). beta_s is
-    blur(union indicator) - alpha_s. Returns (alpha_s, beta_s)."""
+    blur(union indicator) - alpha_s. Returns (alpha_s, beta_s) (kernel E's
+    plain version)."""
     s = w_new + w_old + 1e-6
     alpha = w_new / s
     region = ((w_new > 0.0) | (w_old > 0.0)).to(torch.float32)
     alpha_s = gaussian_blur(alpha, BLEND_SMOOTH_SIGMA, BLEND_SMOOTH_RADIUS)
     beta_s = gaussian_blur(region, BLEND_SMOOTH_SIGMA, BLEND_SMOOTH_RADIUS) - alpha_s
+    return alpha_s, beta_s
+
+
+@functools.lru_cache(maxsize=1)
+def blur_table() -> np.ndarray:
+    """Kernel E's weights, float32 [4 r + 2] (read only), r the blend blur's
+    radius: the 2 r + 1 taps of its gaussian_kernel1d; then for d < r the
+    weight of source 0 at output d (the taps 0 .. r - d, which the
+    edge-replicate padding sends there); then the weight of source n - 1 at
+    output n - 1 - d (the taps d + r .. 2 r); then the weight of the one
+    source of a line of length 1 (every tap). Each is summed in tap order
+    from 0.0 in float32, as band_matrix and _band_tensor sum the band's
+    entries."""
+    r = BLEND_SMOOTH_RADIUS
+    taps = gaussian_kernel1d(BLEND_SMOOTH_SIGMA, r)
+
+    def folded(ts):
+        acc = np.float32(0.0)
+        for t in ts:
+            acc = np.float32(acc + taps[t])
+        return acc
+
+    lo = [folded(range(0, r - d + 1)) for d in range(r)]
+    hi = [folded(range(d + r, 2 * r + 1)) for d in range(r)]
+    out = np.concatenate([taps, lo, hi, [folded(range(2 * r + 1))]]).astype(np.float32)
+    out.flags.writeable = False
+    return out
+
+
+_blend = kernels.Entry("blend", "rtvm_blend_weights", "pppppiiiqqqq")
+
+
+def blend_weights_smoothed(w_new: torch.Tensor, w_old: torch.Tensor):
+    """blend_weights_smoothed_plain's function: kernel E (``csrc/blend.cu``)
+    for CUDA tensors, one launch for all the maps of w_new and w_old
+    [..., R, W] (float32, one shape, any batch and row strides, unit column
+    stride); the plain version for CPU tensors. The kernel sums the band
+    matrix's products in its own fixed order, so a band of rows holds the
+    same bits as those rows of the whole map wherever its 15-row halo lies
+    inside the band; the plain version's cuBLAS product may sum in another
+    order (on an H100 the two have read bit for bit the same). Returns
+    (alpha_s, beta_s), contiguous."""
+    for name, x in (("w_new", w_new), ("w_old", w_old)):
+        if x.dtype != torch.float32:
+            raise TypeError(f"blend_weights_smoothed wants {name} as float32, got {x.dtype}")
+    if w_old.device != w_new.device:
+        raise ValueError(f"blend_weights_smoothed: w_new on {w_new.device}, w_old on {w_old.device}")
+    if w_new.shape != w_old.shape or w_new.dim() < 2 or 0 in w_new.shape[-2:]:
+        raise ValueError(f"blend_weights_smoothed wants two [..., R, W] maps of one shape with R, W "
+                         f">= 1, got {tuple(w_new.shape)} and {tuple(w_old.shape)}")
+    if w_new.device.type == "cpu":
+        return blend_weights_smoothed_plain(w_new, w_old)
+    if w_new.device.type != "cuda":
+        raise ValueError(f"blend_weights_smoothed: no kernel for device {w_new.device}")
+    if w_new.stride(-1) != 1 or w_old.stride(-1) != 1:
+        raise ValueError("blend_weights_smoothed wants maps with unit column stride")
+    rows, cols = w_new.shape[-2], w_new.shape[-1]
+    alpha_s = torch.empty(w_new.shape, dtype=torch.float32, device=w_new.device)
+    beta_s = torch.empty_like(alpha_s)
+    if alpha_s.numel() == 0:
+        return alpha_s, beta_s
+    n = alpha_s.numel() // (rows * cols)
+    wn, wo = (x.reshape(n, rows, cols) for x in (w_new, w_old))  # a view where the lead axes merge
+    _blend(w_new.device, wn.data_ptr(), wo.data_ptr(), alpha_s.data_ptr(), beta_s.data_ptr(),
+           blur_table().ctypes.data, n, rows, cols, wn.stride(0), wn.stride(1), wo.stride(0),
+           wo.stride(1))
     return alpha_s, beta_s
 
 

@@ -13,9 +13,10 @@ state the window starts from, each alone under torch.profiler: kernel A's
 warp, frame_weight_params, frame_weight_eval (kernel D and its plain version,
 held bitwise equal), the holes distance, the coarse footprints, the union
 distance (kernel C and its plain version, held bitwise equal), the upsample,
-the old weight, the blend blur and the blend loop; then paint_band whole,
-with kernels C and D, with the plain union distance and with the plain
-frame weight in their places.
+the old weight, the blend blur (kernel E and its plain version, held within
+1e-6) and the blend loop; then paint_band whole, with kernels C, D and E,
+and with the plain union distance, the plain frame weight and the plain
+blend blur in their places.
 
 Prints, for each part, the device time of its kernels a window (the sum of
 their durations, copies included), its launches and its wall time (CUDA
@@ -119,6 +120,8 @@ def main() -> int:
 
     wold = old_weight()
     alpha, beta = W.blend_weights_smoothed(wnew, wold)
+    blend_gap = max(float((k - p).abs().max())
+                    for k, p in zip((alpha, beta), W.blend_weights_smoothed_plain(wnew, wold)))
 
     def blend_loop():
         canvas = st.canvas
@@ -137,12 +140,14 @@ def main() -> int:
         "union distance (plain)": lambda: W.coarse_union_distance_plain(ub),
         "upsample": lambda: W.upsample_weight(d, hc, wc),
         "old weight": old_weight,
-        "blend blur": lambda: W.blend_weights_smoothed(wnew, wold),
+        "blend blur (kernel E)": lambda: W.blend_weights_smoothed(wnew, wold),
+        "blend blur (plain)": lambda: W.blend_weights_smoothed_plain(wnew, wold),
         "blend loop": blend_loop,
         "paint_band": lambda: S.paint_band(st.canvas, st.union_coarse, frames_cm, H_abs, blended,
                                            (hf, wf), (hc, wc)),
         "paint_band, plain union": lambda: plain_paint("coarse_union_distance"),
         "paint_band, plain weight": lambda: plain_paint("frame_weight_eval"),
+        "paint_band, plain blend": lambda: plain_paint("blend_weights_smoothed"),
     }
 
     def plain_paint(fn: str):
@@ -175,10 +180,12 @@ def main() -> int:
         print(f"{name:28s} device {out[name]['device_ms']:9.3f} ms  launches "
               f"{out[name]['launches']:6.0f}  wall {wall:9.3f} ms", flush=True)
     print(f"canvas {hc}x{wc}, union grids {tuple(ub.shape)}, {int(blended.sum())}/{b} blended, "
-          f"kernel C bitwise the plain version: {same}, kernel D: {same_w}; on {card}")
+          f"kernel C bitwise the plain version: {same}, kernel D: {same_w}, kernel E {blend_gap:.3g} "
+          f"off it (at most 1e-6); on {card}")
     print(json.dumps({"card": card, "canvas": [hc, wc], "grids": list(ub.shape),
-                      "union_bitwise": same, "weight_bitwise": same_w, "parts": out}))
-    return 0 if same and same_w else 1
+                      "union_bitwise": same, "weight_bitwise": same_w, "blend_gap": blend_gap,
+                      "parts": out}))
+    return 0 if same and same_w and blend_gap <= 1e-6 else 1
 
 
 if __name__ == "__main__":
