@@ -37,6 +37,8 @@ import torch.nn.functional as F
 from rtvm_tpu_torch.detect import classes as C
 from rtvm_tpu_torch.detect.classical import detect_buildings_classical, detect_vehicles_classical
 from rtvm_tpu_torch.device import resolve_device
+from rtvm_tpu_torch.models.rtdetr import postprocess as rtdetr_pp
+from rtvm_tpu_torch.models.rtdetr.model import build_rtdetr, is_rtdetr, state_dict_from_leaves
 from rtvm_tpu_torch.models.yolo import postprocess as pp
 from rtvm_tpu_torch.models.yolo.convert import flax_to_state_dict
 from rtvm_tpu_torch.models.yolo.model import build_yolo
@@ -74,13 +76,16 @@ def tile_starts(dim: int, win: int = 640, stride: int = 400) -> List[int]:
 
 
 class ObjectDetector:
-    """YOLOv8/YOLO11/YOLOv8-Worldv2 detector on ``device`` (``cuda`` unless
-    given). ``model`` names a variant of ``models/yolo/model.py``:
+    """YOLOv8/YOLO11/YOLOv8-Worldv2/RT-DETR detector on ``device`` (``cuda``
+    unless given). ``model`` names a variant of ``models/yolo/model.py``:
     ``yolov8{n,s,m,l,x}``, ``yolo11{n,s,m,l,x}`` or
     ``yolov8{n,s,m,l,x}-worldv2``, whose checkpoint holds the vocabulary's
     text embeddings (``txt_feats``, one row a class of its json): its class
     logits are scores against those names, and every path here runs it as
-    the closed-set models.
+    the closed-set models; or of ``models/rtdetr/model.py``
+    (``rtdetr-r101vd``), whose ``.npz`` holds its
+    ``state_dict`` (leaf paths with ``/`` for ``.``): it takes no NMS
+    (``_infer_fn`` selects one detection a query) and has no ``.pt`` route.
 
     Weights, in the JAX class's order: the Flax checkpoint ``weights_path``
     if it is an ``.npz``, else ``{model}_aerial.npz`` found in ``.``,
@@ -116,12 +121,22 @@ class ObjectDetector:
             if os.path.exists(meta_path):
                 with open(meta_path) as f:
                     classes = json.load(f)["classes"]
-            self.model = build_yolo(model, num_classes=len(classes), seed=seed, device="cpu")
-            self.model.load_state_dict(flax_to_state_dict(load_pytree_npz(npz), model))
+            if is_rtdetr(model):
+                self.model = build_rtdetr(model, num_classes=len(classes), seed=seed,
+                                          device="cpu")
+                self.model.load_state_dict(state_dict_from_leaves(load_pytree_npz(npz)))
+            else:
+                self.model = build_yolo(model, num_classes=len(classes), seed=seed, device="cpu")
+                self.model.load_state_dict(flax_to_state_dict(load_pytree_npz(npz), model))
             self.model.to(self.device)
             self.class_names = list(classes)
             self.weights_loaded = True
             self.weights_source = npz
+        elif is_rtdetr(model):  # no .pt route: the random model of `seed`
+            self.model = build_rtdetr(model, num_classes=num_classes, seed=seed,
+                                      device=self.device)
+            self.class_names = (C.COCO_CLASSES if num_classes == 80
+                                else [str(i) for i in range(num_classes)])
         else:
             self.model = build_yolo(model, num_classes=num_classes, seed=seed, device="cpu")
             self.class_names = (C.COCO_CLASSES if num_classes == 80
@@ -182,6 +197,8 @@ class ObjectDetector:
         """run(frames_u8 [B, H, W, 3] BGR) -> Detections of [B, 300] in frame
         pixels (cached per argument set)."""
         key = (imgsz, conf, iou, dtype)
+        if key not in self._infer_cache and is_rtdetr(self.model_name):
+            self._infer_cache[key] = self._rtdetr_infer_fn(imgsz, conf, dtype)
         if key not in self._infer_cache:
             cfg = self.model.cfg
 
@@ -197,6 +214,21 @@ class ObjectDetector:
 
             self._infer_cache[key] = run
         return self._infer_cache[key]
+
+    def _rtdetr_infer_fn(self, imgsz, conf: float, dtype: torch.dtype):
+        """RT-DETR's run: no NMS, one detection a query
+        (``models/rtdetr/postprocess.py``) in the span ``detect.decode``; IoU
+        plays no part."""
+        queries = self.model.spec.num_queries
+
+        def run(frames_u8) -> pp.Detections:
+            (box_l, cls_l), (scale, py, px) = self.head_logits(frames_u8, imgsz, dtype)
+            with torch.inference_mode():
+                with span("detect.decode"):
+                    det = rtdetr_pp.select_detections(box_l, cls_l, queries, imgsz, conf)
+                    return det._replace(boxes=pp.unletterbox_boxes(det.boxes, scale, py, px))
+
+        return run
 
     def _run_pass(self, images_u8, imgsz, conf: float, iou: float) -> List[List[dict]]:
         """images [B, H, W, 3] BGR uint8 -> per-image detection dicts."""
